@@ -2,9 +2,10 @@
 
 Same field names, flag names and defaults as the JAX package's
 ``config.py``, so one argv drives either trainer.  The port runs the race
-recipe (crop + flip, f32, one device, per-step loop); every flag that selects
-something outside it is rejected by :func:`check_supported` with the name of
-the slice that will bring it, never silently ignored.
+recipe (crop + flip, f32, per-step loop) on one device or data parallel over
+N processes; every flag that selects something outside it is rejected by
+:func:`check_supported` (or, for ``--mesh_model``, ``parallel.data_axis``)
+with the name of the slice that will bring it, never silently ignored.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class CilConfig:
 
     backbone: str = "resnet32"
 
-    batch_size: int = 128          # per device
+    batch_size: int = 128          # per process (the global batch is × N)
     lr: float = 0.1
     momentum: float = 0.9
     weight_decay: float = 5e-4
@@ -155,7 +156,6 @@ _LATER_SLICES = (
     ("reprob", lambda v: v > 0, "augmentation (random erasing)"),
     ("precision", lambda v: v not in ("", "f32"), "precision"),
     ("compute_dtype", lambda v: v != "float32", "precision"),
-    ("bn_group_size", lambda v: v > 0, "GroupedBatchNorm"),
     ("ckpt_dir", lambda v: v is not None, "checkpoints"),
     ("resume", bool, "checkpoints"),
     ("epoch_ckpt_every", lambda v: v > 0, "checkpoints"),
@@ -168,9 +168,8 @@ _LATER_SLICES = (
     ("check_donation", bool, "checkpoints"),
     ("check_threads", bool, "telemetry"),
     ("check_contracts", bool, "telemetry"),
-    ("check_lockstep", bool, "data parallel"),
-    ("lockstep_dir", lambda v: v is not None, "data parallel"),
-    ("mesh_shape", lambda v: v not in (None, (1, 1)), "data parallel"),
+    ("check_lockstep", bool, "lockstep"),
+    ("lockstep_dir", lambda v: v is not None, "lockstep"),
     ("prefetch_depth", lambda v: v > 0, "prefetch"),
     ("export_dir", lambda v: v is not None, "serving"),
     ("serve_skew_check", bool, "serving"),
@@ -184,9 +183,8 @@ def check_supported(config: CilConfig) -> None:
         if outside(value):
             raise NotImplementedError(
                 f"{field}={value!r} is not ported yet: it arrives with the "
-                f"{later} slice of the PyTorch port (this slice runs crop + "
-                "flip augmentation in f32 on one device; pass e.g. "
-                "--aa none --color_jitter 0)"
+                f"{later} slice of the PyTorch port (it runs crop + flip "
+                "augmentation in f32; pass e.g. --aa none --color_jitter 0)"
             )
 
 
@@ -237,7 +235,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default=d.compute_dtype,
                    choices=["float32", "bfloat16"])
     p.add_argument("--mesh_data", default=0, type=int,
-                   help="data-axis size (0 = all devices; one device here)")
+                   help="data-axis size: 0 or the number of processes "
+                   "(torchrun --nproc_per_node N ... --mesh_data N)")
     p.add_argument("--mesh_model", default=1, type=int)
     p.add_argument("--ckpt_dir", default=None, type=str)
     p.add_argument("--ckpt_backend", default=d.ckpt_backend,

@@ -79,11 +79,21 @@ def draw_params(
 
 
 def train_augment(
-    batch_u8: torch.Tensor, cfg: AugmentConfig, generator: torch.Generator
+    batch_u8: torch.Tensor, cfg: AugmentConfig, generator: torch.Generator,
+    process_index: int = 0, process_count: int = 1,
 ) -> torch.Tensor:
-    """``uint8 [B,H,W,C] -> normalized float32 [B,H,W,C]`` train pipeline."""
+    """``uint8 [B,H,W,C] -> normalized float32 [B,H,W,C]`` train pipeline.
+
+    ``batch_u8`` is stripe ``process_index`` of a global batch of
+    ``B·process_count`` rows.  The parameters are drawn for the whole global
+    batch, as JAX splits one key over it, and the stripe's rows kept: every
+    process seeds its generator alike, so N processes augment exactly as one
+    process does at the same global batch."""
     img = batch_u8.float()
-    oy, ox, flip = draw_params(img.shape[0], cfg, generator)
+    b = img.shape[0]
+    rows = slice(process_index * b, (process_index + 1) * b)
+    oy, ox, flip = (None if p is None else p[rows]
+                    for p in draw_params(b * process_count, cfg, generator))
     if oy is not None:
         img = random_crop(img, oy, ox, cfg.crop_padding)
     if flip is not None:

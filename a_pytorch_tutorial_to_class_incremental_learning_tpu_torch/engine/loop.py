@@ -7,6 +7,16 @@ the epochs (with the reference's eval cadence), weight-align the new head
 copy), herd the next memory, and write the ``run/epoch/task/cil_metrics/
 final`` JSONL records.  The fused epoch, prefetch, telemetry spans,
 checkpoints, faults, lockstep and export arrive with later slices.
+
+Data parallel over N processes (``torchrun ... --mesh_data N``): the global
+batch is ``batch_size × N`` and rank ``r`` trains on, and evaluates, the
+stripe ``[r·b, (r+1)·b)`` of each global batch; the eval totals are
+all-reduced before their one host fetch.  Everything else is replicated
+with no communication: the model is made from the same seed and broadcast
+from rank 0 once, head growth and augmentation draw from generators seeded
+alike on every rank, and every rank herds the same memory from the full,
+unsharded feature pass.  Rank 0 writes the JSONL log and prints; rank
+``r > 0`` writes ``<name>_p<r>.jsonl``.
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import CilConfig, check_supported
 from ..data import (
@@ -27,7 +38,8 @@ from ..data import (
     train_batches,
 )
 from ..data.augment import AugmentConfig
-from ..models import align, create_model, grow
+from ..models import align, create_model, group_span, grow
+from ..parallel import barrier, broadcast_module, data_axis
 from ..telemetry import AccuracyMatrix, average_incremental_accuracy
 from ..utils.logging import JsonlLogger, MetricLogger
 from ..utils.platform import derive_seed, make_generator, resolve_device, use_full_f32
@@ -64,8 +76,12 @@ class CilTrainer:
         check_supported(config)
         self.config = config
         self.device = resolve_device(device)
+        self.axis = data_axis(config.mesh_shape)
+        if config.bn_group_size > 0:
+            group_span(config.bn_group_size, config.batch_size, self.axis.size)
         use_full_f32()
-        self.jsonl = JsonlLogger(config.log_file)
+        self.jsonl = JsonlLogger(config.log_file, process_index=self.axis.rank,
+                                 process_count=self.axis.size)
         self.scenario_train, self.nb_classes = build_scenario(config, train=True)
         self.scenario_val, _ = build_scenario(config, train=False)
 
@@ -76,12 +92,16 @@ class CilTrainer:
                 f"but --input_size is {config.input_size}"
             )
         self.aug_cfg = AugmentConfig.from_config(config)
-        self.global_batch_size = config.batch_size  # one device
+        # batch_size is per process, as the reference's per-GPU batch.
+        self.global_batch_size = config.batch_size * self.axis.size
 
         model = create_model(
             config.backbone, self.nb_classes,
             seed=derive_seed(config.seed, _INIT_STREAM),
+            bn_group_size=config.bn_group_size, axis=self.axis,
         ).to(self.device)
+        if self.axis.sharded:
+            broadcast_module(model, self.axis.group)
         self.state = TrainState(
             model=model,
             momentum=sgd_init(model.parameters()),
@@ -102,6 +122,7 @@ class CilTrainer:
             momentum=config.momentum,
             weight_decay=config.weight_decay,
             use_pallas_loss=config.use_pallas_loss,
+            axis=self.axis,
         )
         self.eval_step = make_eval_step(self.aug_cfg)
         self.feature_step = make_feature_step(
@@ -116,6 +137,7 @@ class CilTrainer:
             increment=config.increment,
             batch_size=config.batch_size,
             global_batch=self.global_batch_size,
+            bn_group_size=config.bn_group_size,
             num_epochs=config.num_epochs,
             lr=config.lr,
             seed=config.seed,
@@ -128,8 +150,8 @@ class CilTrainer:
                          if self.device.type == "cuda" else "cpu"),
             torch_version=torch.__version__,
             use_pallas_loss=config.use_pallas_loss,
-            mesh={"data": 1, "model": 1},
-            processes=1,
+            mesh={"data": self.axis.size, "model": 1},
+            processes=self.axis.size,
         )
         self.acc1s: List[float] = []
         self.matrix = AccuracyMatrix()
@@ -164,11 +186,11 @@ class CilTrainer:
                 print(f"old norm / new norm ={gamma}")
             # One accuracy-matrix row: each seen task's val slice evaluated
             # separately; the exact weighted totals sum to the cumulative
-            # ones.  One device->host fetch for the whole row.
-            slice_totals = torch.stack([
+            # ones.  One all-reduce and one device->host fetch for the row.
+            slice_totals = self._sum_over_ranks(torch.stack([
                 self._eval_totals_device(self.scenario_val[j])
                 for j in range(task_id + 1)
-            ]).cpu().numpy()
+            ])).cpu().numpy()
             totals = slice_totals.sum(axis=0)
             print(_eval_line(totals))
             acc1 = float(100.0 * totals[1] / max(totals[3], 1.0))
@@ -211,6 +233,7 @@ class CilTrainer:
         self.jsonl.log(
             "final", acc1s=list(self.acc1s), avg_incremental_acc1=avg_inc, **summary
         )
+        barrier()
         return {
             "acc1s": self.acc1s,
             "acc_matrix": self.matrix.as_list(),
@@ -279,7 +302,8 @@ class CilTrainer:
         gen = make_generator(self.device, cfg.seed, _AUG_STREAM, task_id, epoch)
         rows = []
         keys = None
-        batches = train_batches(task_train, self.global_batch_size, shuffle_seed)
+        batches = train_batches(task_train, self.global_batch_size, shuffle_seed,
+                                self.axis.rank, self.axis.size)
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
@@ -303,17 +327,24 @@ class CilTrainer:
     # Eval
     # ------------------------------------------------------------------ #
 
+    def _sum_over_ranks(self, totals: torch.Tensor) -> torch.Tensor:
+        if self.axis.sharded:
+            dist.all_reduce(totals, group=self.axis.group)
+        return totals
+
     def _eval_totals_device(self, dataset_val) -> torch.Tensor:
-        """``[loss_sum, correct1, correct5, n]`` over a val set, on device."""
+        """``[loss_sum, correct1, correct5, n]`` over this rank's stripes of
+        a val set, on device; :meth:`_sum_over_ranks` adds up the ranks'."""
         totals = None
-        for xb, yb, wb in eval_batches(dataset_val, self.global_batch_size):
+        for xb, yb, wb in eval_batches(dataset_val, self.global_batch_size,
+                                       self.axis.rank, self.axis.size):
             x, y, w = self._to_device(xb, yb, wb)
             out = self.eval_step(self.state.model, x, y, w, self.state.num_active)
             totals = out if totals is None else totals + out
         return totals
 
     def evaluate(self, dataset_val) -> float:
-        totals = self._eval_totals_device(dataset_val).cpu().numpy()
+        totals = self._sum_over_ranks(self._eval_totals_device(dataset_val)).cpu().numpy()
         print(_eval_line(totals))
         return float(100.0 * totals[1] / max(totals[3], 1.0))
 
@@ -323,7 +354,9 @@ class CilTrainer:
 
     def _update_memory(self, task_id: int, task_train) -> None:
         """Features of every sample of the task (plus injected exemplars) in
-        an unshuffled pass, then the herding selection on the host."""
+        an unshuffled pass, then the herding selection on the host.  The
+        pass is unsharded and the same on every rank, so the memories are
+        identical without communication."""
         gen = make_generator(self.device, self.config.seed, _HERD_STREAM, task_id)
         feats = []
         for xb, _yb in sequential_batches(task_train, self.global_batch_size):

@@ -3,6 +3,12 @@
 Counterpart of the JAX package's ``engine/losses.py``.  ``cross_entropy`` is
 the train loss without ``--use_pallas_loss`` and the reference the fused
 kernel (``ops/fused_loss.py``) is held against.
+
+Under data parallelism each rank holds a stripe of the global batch, and
+``group`` (its process group) asks for the rank's *share* of the global-
+batch value: its local mean divided by the number of ranks, so that the
+shares sum to the global value and their gradients to the global gradient.
+``group=None`` is the single-process value.
 """
 
 from __future__ import annotations
@@ -10,6 +16,7 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 Count = Union[int, torch.Tensor]
@@ -19,16 +26,22 @@ def _active_mask(width: int, num_active: Count, device) -> torch.Tensor:
     return torch.arange(width, device=device) < num_active
 
 
+def _ranks(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
 def cross_entropy(
     logits: torch.Tensor,
     labels: torch.Tensor,
     num_active: Count,
     label_smoothing: float = 0.0,
     weights: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """Mean CE with label smoothing over the active classes: target
     ``(1-s)·onehot + s/num_active`` on active columns.  Masked columns hold
-    ``NEG_INF``, so the full-width log-softmax is the active-slice one."""
+    ``NEG_INF``, so the full-width log-softmax is the active-slice one.
+    With ``group``, the rank's share of the global-batch mean."""
     logits = logits.float()
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels[:, None])[:, 0]
@@ -40,8 +53,8 @@ def cross_entropy(
     else:
         per = nll
     if weights is None:
-        return per.mean()
-    return (per * weights).sum() / weights.sum().clamp_min(1.0)
+        return per.mean() / _ranks(group)
+    return (per * weights).sum() / weights.sum().clamp_min(1.0) / _ranks(group)
 
 
 def soft_target_kd(
@@ -49,9 +62,10 @@ def soft_target_kd(
     teacher_logits: torch.Tensor,
     known: Count,
     temperature: float = 2.0,
+    group=None,
 ) -> torch.Tensor:
     """``KL(softmax(t/T) || softmax(s/T)) · T²``, batch mean, over the first
-    ``known`` classes."""
+    ``known`` classes; with ``group``, the rank's share of the global one."""
     s = student_logits.float()
     t = teacher_logits.float()
     mask = _active_mask(s.shape[-1], known, s.device)
@@ -61,7 +75,7 @@ def soft_target_kd(
     logp_t = F.log_softmax(t, dim=-1)
     p_t = logp_t.exp()
     kl_per = torch.where(mask, p_t * (logp_t - logp_s), 0.0).sum(-1)
-    return kl_per.mean() * temperature * temperature
+    return kl_per.mean() * temperature * temperature / _ranks(group)
 
 
 def topk_correct(
@@ -80,8 +94,11 @@ def topk_correct(
 
 
 def accuracy(
-    logits: torch.Tensor, labels: torch.Tensor, topk: Tuple[int, ...] = (1, 5)
+    logits: torch.Tensor, labels: torch.Tensor, topk: Tuple[int, ...] = (1, 5),
+    group=None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Batch top-k accuracies in percent."""
-    b = logits.shape[0]
+    """Batch top-k accuracies in percent; with ``group``, the rank's shares
+    of the global batch's (the train step all-reduces them with the other
+    metrics, in one collective)."""
+    b = logits.shape[0] * _ranks(group)
     return tuple(topk_correct(logits, labels, k) * (100.0 / b) for k in topk)

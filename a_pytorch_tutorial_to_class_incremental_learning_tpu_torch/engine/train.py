@@ -5,6 +5,17 @@ augment on the device -> student forward (train mode, BN running stats
 updated) -> masked CE, through the fused kernel with ``use_pallas_loss`` ->
 teacher forward (eval mode, no grad) + λ·KD -> backward -> SGD.  Step
 metrics stay on the device; the loop fetches them once per epoch.
+
+Data parallel (``group``, the process group of the data axis): each rank
+holds a stripe of the global batch and its loss terms are its *shares* of
+the global-batch loss (local mean / N); the masked CE with
+``use_pallas_loss`` goes through ``sharded_fused_masked_cross_entropy``.
+The parameter gradients are then summed over the ranks in one all-reduce
+of a flat buffer, the JAX convention for replicated parameters (the sum of
+the per-shard contributions), and every rank takes the same SGD step.  The
+model is not wrapped in ``DistributedDataParallel``: its reducer hooks do
+not fire under ``torch.autograd.grad``, the head grows in place every task,
+and it averages where this convention sums.
 """
 
 from __future__ import annotations
@@ -14,11 +25,13 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..data.augment import AugmentConfig, eval_preprocess, train_augment
 from ..models import CilModel
-from ..ops import fused_masked_cross_entropy
+from ..ops import fused_masked_cross_entropy, sharded_fused_masked_cross_entropy
+from ..parallel.mesh import DataAxis, all_reduce_sum
 from .losses import accuracy, cross_entropy, soft_target_kd, topk_correct
 
 
@@ -82,27 +95,44 @@ def train_step_on_batch(
     momentum: float,
     weight_decay: float,
     use_pallas_loss: bool = False,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
-    """One step on an already augmented, normalized NHWC batch ``x``."""
+    """One step on an already augmented, normalized NHWC batch ``x``: this
+    rank's stripe of the global batch when ``group`` is given.  The metrics
+    are the global batch's on every rank."""
     model = state.model
     params = list(model.parameters())
     logits, _ = model(x, state.num_active, train=True)
-    if use_pallas_loss:
-        ce = fused_masked_cross_entropy(logits, labels, state.num_active, label_smoothing)
+    if use_pallas_loss and group is not None:
+        # The value is the global mean already (a pmean); its gradient is
+        # the share's.
+        ce = sharded_fused_masked_cross_entropy(
+            group, logits, labels, state.num_active, label_smoothing
+        )
+        ce_share = ce.detach() / dist.get_world_size(group)
     else:
-        ce = cross_entropy(logits, labels, state.num_active, label_smoothing)
+        if use_pallas_loss:
+            ce = fused_masked_cross_entropy(logits, labels, state.num_active, label_smoothing)
+        else:
+            ce = cross_entropy(logits, labels, state.num_active, label_smoothing, group=group)
+        ce_share = ce.detach()
     if teacher is not None:
         with torch.no_grad():
             t_logits, _ = teacher.model(x, teacher.known, train=False)
-        kd = lambda_kd * soft_target_kd(logits, t_logits, state.known, kd_temperature)
+        kd = lambda_kd * soft_target_kd(logits, t_logits, state.known, kd_temperature,
+                                        group=group)
     else:
         kd = torch.zeros((), device=logits.device)
-    loss = ce + kd
-    grads = torch.autograd.grad(loss, params)
-    sgd_update(params, list(grads), state.momentum, lr, momentum, weight_decay)
-    acc1, acc5 = accuracy(logits.detach(), labels, topk=(1, 5))
-    return {"ce": ce.detach(), "kd": kd.detach(), "loss": loss.detach(),
-            "acc1": acc1, "acc5": acc5}
+    grads = list(torch.autograd.grad(ce + kd, params))
+    if group is not None:
+        grads = all_reduce_sum(grads, group)
+    sgd_update(params, grads, state.momentum, lr, momentum, weight_decay)
+    acc1, acc5 = accuracy(logits.detach(), labels, topk=(1, 5), group=group)
+    shares = torch.stack([ce_share, kd.detach(), acc1, acc5])
+    if group is not None:
+        dist.all_reduce(shares, group=group)
+    ce, kd, acc1, acc5 = shares.unbind()
+    return {"ce": ce, "kd": kd, "loss": ce + kd, "acc1": acc1, "acc5": acc5}
 
 
 def make_train_step(
@@ -112,17 +142,20 @@ def make_train_step(
     momentum: float,
     weight_decay: float,
     use_pallas_loss: bool = False,
+    axis: Optional[DataAxis] = None,
 ):
     """``step(state, teacher, x_u8, labels, generator, lr, lambda_kd) ->
-    metrics``: augment with ``generator``, then :func:`train_step_on_batch`."""
+    metrics``: augment with ``generator``, then :func:`train_step_on_batch`;
+    on a sharded ``axis``, ``x_u8`` is this rank's stripe."""
+    axis = axis or DataAxis()
 
     def step(state, teacher, x_u8, labels, generator, lr, lambda_kd):
-        x = train_augment(x_u8, aug_cfg, generator)
+        x = train_augment(x_u8, aug_cfg, generator, axis.rank, axis.size)
         return train_step_on_batch(
             state, teacher, x, labels, lr, lambda_kd,
             label_smoothing=label_smoothing, kd_temperature=kd_temperature,
             momentum=momentum, weight_decay=weight_decay,
-            use_pallas_loss=use_pallas_loss,
+            use_pallas_loss=use_pallas_loss, group=axis.group,
         )
 
     return step

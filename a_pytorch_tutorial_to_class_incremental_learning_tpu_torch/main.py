@@ -9,6 +9,14 @@ with the JAX package's flags; the race recipe on CUDA::
         --color_jitter 0 --num_epochs 20 --use_pallas_loss
 
 ``--platform cpu`` runs on the CPU; the default needs a CUDA device.
+
+Data parallel over N cards, one process each, with ``--batch_size`` per
+process (the global batch is N times it)::
+
+    torchrun --nproc_per_node N -m a_pytorch_tutorial_to_class_incremental_learning_tpu_torch \
+        <flags> --mesh_data N
+
+(``gloo`` with ``--platform cpu``, ``nccl`` on CUDA).
 """
 
 from __future__ import annotations
@@ -16,8 +24,11 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
+import torch.distributed as dist
+
 from .config import config_from_args, get_args_parser
 from .engine import CilTrainer
+from .parallel import init_distributed_mode
 
 
 def build_trainer(argv: Optional[Sequence[str]] = None) -> CilTrainer:
@@ -29,13 +40,22 @@ def build_trainer(argv: Optional[Sequence[str]] = None) -> CilTrainer:
     if args.host_devices:
         raise NotImplementedError(
             "--host_devices is not ported yet: multi-device runs arrive with "
-            "the data parallel slice of the PyTorch port"
+            "a later slice of the PyTorch port (launch one process per "
+            "device with torchrun instead)"
         )
+    init_distributed_mode(args.dist_url, args.platform)
     return CilTrainer(config_from_args(args), device=args.platform)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    return build_trainer(argv).fit()
+    """Run the experiment; a process group this call made is destroyed on
+    the way out (one the caller made stays)."""
+    owned = not dist.is_initialized()
+    try:
+        return build_trainer(argv).fit()
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

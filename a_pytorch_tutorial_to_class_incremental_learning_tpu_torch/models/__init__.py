@@ -1,6 +1,7 @@
 """Model layer: CIFAR ResNet backbone and the static masked CIL head."""
 
-from .resnet import BasicBlock, BatchNorm, CifarResNet, DownsampleA, get_backbone  # noqa: F401
+from .norm import BatchNorm, GroupedBatchNorm, group_span, make_norm  # noqa: F401
+from .resnet import BasicBlock, CifarResNet, DownsampleA, get_backbone  # noqa: F401
 from .classifier import (  # noqa: F401
     NEG_INF,
     grow_head,

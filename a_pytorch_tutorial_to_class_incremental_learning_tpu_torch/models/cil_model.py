@@ -13,15 +13,17 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import DataAxis
 from .classifier import grow_head, masked_logits, weight_align
 from .resnet import get_backbone
 
 
 class CilModel(nn.Module):
     def __init__(self, backbone_name: str = "resnet32", width: int = 100,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bn_group_size: int = 0, axis: Optional[DataAxis] = None):
         super().__init__()
-        self.backbone = get_backbone(backbone_name, generator)
+        self.backbone = get_backbone(backbone_name, generator, bn_group_size, axis)
         # Allocated zero; `grow` fills each task's rows.
         self.fc = nn.Linear(self.backbone.out_dim, width)
         with torch.no_grad():
@@ -38,12 +40,14 @@ class CilModel(nn.Module):
         return self.backbone(x, train=train)
 
 
-def create_model(backbone_name: str, nb_classes: int, seed: int = 0) -> CilModel:
+def create_model(backbone_name: str, nb_classes: int, seed: int = 0,
+                 bn_group_size: int = 0, axis: Optional[DataAxis] = None) -> CilModel:
     """Build the model with backbone weights drawn from ``seed`` and a zero
     (fully inactive) ``nb_classes``-wide head, on the CPU; the caller moves
-    it to its device."""
+    it to its device.  ``bn_group_size`` > 0 selects ``GroupedBatchNorm``;
+    ``axis`` is the data axis its BN layers reduce over."""
     generator = torch.Generator().manual_seed(seed)
-    return CilModel(backbone_name, nb_classes, generator)
+    return CilModel(backbone_name, nb_classes, generator, bn_group_size, axis)
 
 
 def grow(model: CilModel, generator: torch.Generator, known: int, nb_new: int) -> None:

@@ -22,39 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-
-class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` semantics.
-
-    ``torch.nn.BatchNorm2d`` folds the *unbiased* batch variance into its
-    running variance; flax folds the *biased* one.  So train mode normalizes
-    with ``F.batch_norm`` on batch statistics and updates the running stats
-    by hand: ``running = 0.9·running + 0.1·batch`` with the biased variance.
-    """
-
-    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
-        super().__init__()
-        self.momentum = momentum
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
-
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        if not train:
-            return F.batch_norm(
-                x, self.running_mean, self.running_var, self.weight, self.bias,
-                False, 0.0, self.eps,
-            )
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-        return F.batch_norm(
-            x, None, None, self.weight, self.bias, True, 0.0, self.eps
-        )
+from ..parallel.mesh import DataAxis
+from .norm import BatchNorm, make_norm
 
 
 def _conv3x3(cin: int, cout: int, stride: int) -> nn.Conv2d:
@@ -72,12 +41,13 @@ class DownsampleA(nn.Module):
 class BasicBlock(nn.Module):
     """conv3x3-BN-ReLU-conv3x3-BN + shortcut, ReLU after the add."""
 
-    def __init__(self, cin: int, planes: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, cin: int, planes: int, stride: int = 1, downsample: bool = False,
+                 bn_group_size: int = 0, axis: Optional[DataAxis] = None):
         super().__init__()
         self.conv_a = _conv3x3(cin, planes, stride)
-        self.bn_a = BatchNorm(planes)
+        self.bn_a = make_norm(planes, bn_group_size, axis)
         self.conv_b = _conv3x3(planes, planes, 1)
-        self.bn_b = BatchNorm(planes)
+        self.bn_b = make_norm(planes, bn_group_size, axis)
         self.shortcut = DownsampleA() if downsample else None
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -93,7 +63,8 @@ class CifarResNet(nn.Module):
     out_dim = 64
 
     def __init__(self, depth: int = 32, channels: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bn_group_size: int = 0, axis: Optional[DataAxis] = None):
         super().__init__()
         if (depth - 2) % 6 != 0:
             raise ValueError("depth should be one of 20, 32, 44, 56, 110")
@@ -101,7 +72,7 @@ class CifarResNet(nn.Module):
         self.channels = channels
         n = (depth - 2) // 6
         self.conv_1_3x3 = _conv3x3(channels, 16, 1)
-        self.bn_1 = BatchNorm(16)
+        self.bn_1 = make_norm(16, bn_group_size, axis)
         self._block_names = []
         cin = 16
         for stage, (planes, stride) in enumerate(((16, 1), (32, 2), (64, 2)), start=1):
@@ -109,7 +80,8 @@ class CifarResNet(nn.Module):
                 first = i == 0
                 name = f"stage_{stage}_block_{i}"
                 self.add_module(name, BasicBlock(
-                    cin, planes, stride if first else 1, first and stage > 1
+                    cin, planes, stride if first else 1, first and stage > 1,
+                    bn_group_size, axis,
                 ))
                 self._block_names.append(name)
                 cin = planes
@@ -145,14 +117,17 @@ class CifarResNet(nn.Module):
 _DEPTHS = {"resnet20": 20, "resnet32": 32, "resnet44": 44, "resnet56": 56, "resnet110": 110}
 
 
-def get_backbone(name: str, generator: Optional[torch.Generator] = None) -> CifarResNet:
-    """Flag string -> backbone."""
+def get_backbone(name: str, generator: Optional[torch.Generator] = None,
+                 bn_group_size: int = 0, axis: Optional[DataAxis] = None) -> CifarResNet:
+    """Flag string -> backbone; ``bn_group_size``/``axis`` pick its BN
+    (``models/norm.py``)."""
     if name.endswith("mnist"):
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet: the 1-channel backbones arrive "
             "with the MNIST data slice of the PyTorch port"
         )
     try:
-        return CifarResNet(_DEPTHS[name], 3, generator)
+        depth = _DEPTHS[name]
     except KeyError:
         raise NotImplementedError(f"Unknown backbone {name}") from None
+    return CifarResNet(depth, 3, generator, bn_group_size, axis)

@@ -7,4 +7,5 @@ from .fused_loss import (  # noqa: F401
     fused_ce_fwd,
     fused_ce_fwd_plain,
     fused_masked_cross_entropy,
+    sharded_fused_masked_cross_entropy,
 )

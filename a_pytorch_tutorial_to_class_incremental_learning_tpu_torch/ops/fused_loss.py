@@ -14,6 +14,10 @@ s/num_active`` over active columns, and the loss is the batch mean.
 ``num_active`` is a 1-element int32 tensor on the logits' device, so one
 code path serves every task without a host sync.
 
+``sharded_fused_masked_cross_entropy`` is the data-parallel form (JAX
+``sharded_fused_masked_cross_entropy``, ``fused_loss.py:191-224``): the same
+kernels on each rank's batch stripe, plus one scalar all-reduce.
+
 ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count kernel launches (never plain-version
 calls), so a run can show that its train steps went through the kernels.
 """
@@ -23,6 +27,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -155,3 +160,45 @@ def fused_masked_cross_entropy(
 ) -> torch.Tensor:
     """Mean masked CE with label smoothing through the fused kernels."""
     return FusedMaskedCrossEntropy.apply(logits, labels, num_active, float(label_smoothing))
+
+
+class ShardedFusedMaskedCrossEntropy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, num_active, smoothing, group):
+        logits = logits.contiguous()
+        per, lse = fused_ce_fwd(logits, labels, num_active, smoothing)
+        world = dist.get_world_size(group)
+        total = per.sum()
+        dist.all_reduce(total, group=group)
+        ctx.save_for_backward(logits, labels, num_active, lse)
+        ctx.smoothing = smoothing
+        ctx.world = world
+        return total / (logits.shape[0] * world)
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, labels, num_active, lse = ctx.saved_tensors
+        dx = fused_ce_bwd(logits, labels, num_active, lse, grad / ctx.world, ctx.smoothing)
+        return dx, None, None, None, None
+
+
+def sharded_fused_masked_cross_entropy(
+    group,
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    num_active: torch.Tensor,
+    label_smoothing: float = 0.0,
+) -> torch.Tensor:
+    """Global-batch mean masked CE over the ranks of ``group``, each holding
+    an equal stripe of the batch.
+
+    Forward: the fused kernel on this rank's stripe, then one all-reduce of
+    the stripe's summed per-sample loss, divided by the global batch: the
+    value of JAX's scalar ``pmean``, the same on every rank.  Backward: the
+    kernel on the stripe with upstream ``g / N``, so the stripe's
+    ``dlogits`` are the global mean's gradient for those rows (JAX's
+    ``pmean`` cotangent), with no collective.  Summing the parameter
+    gradients over the ranks then gives the global gradient."""
+    return ShardedFusedMaskedCrossEntropy.apply(
+        logits, labels, num_active, float(label_smoothing), group
+    )

@@ -3,8 +3,8 @@
 Counterpart of the JAX package's ``utils/logging.py``: the same record
 format (``type`` + ``ts`` + process tags + fields, one JSON object per line),
 so ``scripts/summarize_results.py`` and ``scripts/compare_race.py`` read port
-logs unchanged.  One process writes; multi-process runs arrive with the data
-parallel slice.
+logs unchanged.  Every process of a data-parallel run writes its own file
+(:func:`process_suffixed`).
 """
 
 from __future__ import annotations
@@ -70,16 +70,28 @@ class SmoothedValue:
         )
 
 
-class JsonlLogger:
-    """Structured experiment log; disabled when ``path`` is falsy."""
+def process_suffixed(path: str | None, process_index: int) -> str | None:
+    """Per-process sibling of ``path``: process 0 keeps the name
+    (``run.jsonl``), process *i* > 0 writes ``run_p{i}.jsonl``."""
+    if not path or not process_index:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}_p{process_index}{ext}"
 
-    def __init__(self, path: str | None, append: bool = False):
-        self.path = path
+
+class JsonlLogger:
+    """Structured experiment log; disabled when ``path`` is falsy.  Each
+    process writes its own file, and every record carries its
+    ``process_index``/``process_count``."""
+
+    def __init__(self, path: str | None, append: bool = False,
+                 process_index: int = 0, process_count: int = 1):
+        self.path = process_suffixed(path, process_index)
         self._meta = {}
         if self.path:
             self._meta = {
-                "process_index": 0,
-                "process_count": 1,
+                "process_index": process_index,
+                "process_count": process_count,
                 "host_id": socket.gethostname(),
             }
             os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)

@@ -6,6 +6,7 @@ device the default raises instead of carrying on on the CPU.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -14,7 +15,12 @@ import torch
 
 def resolve_device(platform: Optional[str] = None) -> torch.device:
     """``None``/``"default"``/``"cuda"`` -> the CUDA device (an error when
-    there is none); ``"cpu"`` -> the CPU."""
+    there is none); ``"cpu"`` -> the CPU.
+
+    Under a launcher that sets ``LOCAL_RANK`` (``torchrun``), the process
+    takes card ``LOCAL_RANK`` and makes it the current device; a rank
+    without a card of its own is an error, never a second tenant of
+    another rank's card."""
     if platform == "cpu":
         return torch.device("cpu")
     if platform not in (None, "default", "cuda"):
@@ -24,7 +30,17 @@ def resolve_device(platform: Optional[str] = None) -> torch.device:
             "no CUDA device is available; the port runs on CUDA by default "
             "(pass --platform cpu, or device='cpu', to run on the CPU)"
         )
-    return torch.device("cuda")
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        return torch.device("cuda")
+    index, count = int(local), torch.cuda.device_count()
+    if index >= count:
+        raise RuntimeError(
+            f"LOCAL_RANK {index} has no CUDA device: this node has {count}; "
+            f"launch at most {count} process(es) per node"
+        )
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
 
 
 def use_full_f32() -> None:

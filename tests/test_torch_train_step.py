@@ -229,13 +229,13 @@ def test_cli_on_cpu_writes_the_record_sequence(tmp_path):
     ["--aa", "none", "--color_jitter", "0", "--reprob", "0.25"],
     ["--aa", "none", "--color_jitter", "0", "--precision", "bf16_selective"],
     ["--aa", "none", "--color_jitter", "0", "--compute_dtype", "bfloat16"],
-    ["--aa", "none", "--color_jitter", "0", "--bn_group_size", "128"],
+    ["--aa", "none", "--color_jitter", "0", "--mesh_model", "2"],
     ["--aa", "none", "--color_jitter", "0", "--ckpt_dir", "ck"],
     ["--aa", "none", "--color_jitter", "0", "--resume"],
     ["--aa", "none", "--color_jitter", "0", "--fault_spec", "kill@task1"],
     ["--aa", "none", "--color_jitter", "0", "--telemetry_dir", "tel"],
     ["--aa", "none", "--color_jitter", "0", "--export_dir", "exp"],
-    ["--aa", "none", "--color_jitter", "0", "--mesh_data", "2"],
+    ["--aa", "none", "--color_jitter", "0", "--check_lockstep"],
     ["--aa", "none", "--color_jitter", "0", "--prefetch_depth", "2"],
 ])
 def test_flags_outside_the_slice_raise(flags):
