@@ -3,7 +3,7 @@
 The second package beside the JAX one: the same WA protocol (head growth,
 CE + λ·KD against a frozen teacher, weight alignment, herding rehearsal,
 per-slice evaluation) on PyTorch, with the masked cross-entropy of the
-train step as a hand-written Triton kernel for the H100.  It imports
+train step as hand-written CUDA C++ kernels for the H100.  It imports
 neither JAX nor the JAX package.
 """
 

@@ -267,7 +267,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--bn_group_size", default=0, type=int)
     p.add_argument("--use_pallas_loss", action="store_true", default=False,
                    help="run the train loss through the fused masked-CE "
-                   "kernel (Triton on CUDA; its plain version on the CPU)")
+                   "kernels (CUDA C++ on CUDA; their plain version on the CPU)")
     p.add_argument("--no_fused_epochs", action="store_false",
                    dest="fused_epochs", default=True,
                    help="accepted for parity; the port runs one step per "

@@ -1,8 +1,17 @@
-"""Triton kernels for the fused masked cross-entropy (forward and backward).
+"""Triton kernels for the fused masked cross-entropy (forward and backward):
+the first design, kept off every path of the port.
 
-They replace the Pallas kernels of the JAX package's ``ops/fused_loss.py``:
-``fwd_kernel`` replaces ``_fwd_kernel`` (``fused_loss.py:47``) and
-``bwd_kernel`` replaces ``_bwd_kernel`` (``fused_loss.py:72``).
+The port's wrappers (``ops.fused_loss``) launch the CUDA C++ kernels of
+``csrc/fused_ce.cu``, which took these kernels' place.  Only
+``chip_smoke.py``'s kernel and timing phases call this module, to hold the
+CUDA kernels against this design in the same run; its launches are counted
+in this module's own ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``, apart from the
+wrappers' counts.
+
+Like the CUDA kernels, they stand in for the Pallas kernels of the JAX
+package's ``ops/fused_loss.py``: ``fwd_kernel`` for ``_fwd_kernel``
+(``fused_loss.py:47``) and ``bwd_kernel`` for ``_bwd_kernel``
+(``fused_loss.py:72``).
 
 What bounds them: a row-wise reduction and one elementwise pass, with no
 matrix product.  On the train step's shape (B=128, W=100, f32) the forward
@@ -37,6 +46,9 @@ import torch
 
 _CACHE_DIR = Path(__file__).resolve().parents[2] / "build" / "triton"
 MAX_BLOCK_W = 2048
+
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def block_w(width: int) -> int:
@@ -115,7 +127,8 @@ def launch_fwd(
     smoothing: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample loss ``[B]`` and logsumexp ``[B]``, both f32.  Inputs are
-    checked by the caller (``ops.fused_loss``)."""
+    checked by the caller (``ops.fused_loss._check``)."""
+    global FWD_LAUNCHES
     fwd, _ = _kernels()
     b, w = logits.shape
     per = torch.empty(b, dtype=torch.float32, device=logits.device)
@@ -123,6 +136,7 @@ def launch_fwd(
     blk = block_w(w)
     fwd[(b,)](logits, labels, num_active, per, lse, w, logits.stride(0),
               float(smoothing), BLOCK_W=blk, num_warps=_num_warps(blk))
+    FWD_LAUNCHES += 1
     return per, lse
 
 
@@ -132,6 +146,7 @@ def launch_bwd(
 ) -> torch.Tensor:
     """``dlogits [B, W]`` in the logits' dtype for an upstream 0-d ``grad``
     of the batch-mean loss."""
+    global BWD_LAUNCHES
     _, bwd = _kernels()
     b, w = logits.shape
     dx = torch.empty_like(logits)
@@ -139,4 +154,5 @@ def launch_bwd(
     bwd[(b,)](logits, labels, num_active, lse, grad, dx, w, logits.stride(0),
               dx.stride(0), b, float(smoothing), BLOCK_W=blk,
               num_warps=_num_warps(blk))
+    BWD_LAUNCHES += 1
     return dx

@@ -7,23 +7,33 @@
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. Environment: the card's name and power limit (``nvidia-smi``), the torch,
-   CUDA and Triton versions, and the TF32 switches of the f32 preset.
-2. Each kernel against its plain PyTorch version on the card: the fused
-   masked-CE forward and backward over the test grid, the train step's shape
-   (B=128, W=100, 50 active) and a wide head (B=64, W=5000, 4321 active)
-   that runs the column loop, with smoothing 0 / 0.1 and f32 / bf16 logits.
-   f32 must agree to rtol 1e-5 / atol 1e-6 (Triton's exp/log and the sum
-   order differ from PyTorch's), bf16 outputs to rtol 1e-2 (one bf16 ulp),
-   and masked-column gradients must be exactly 0.  Then, at the train
-   step's shape, the kernel's time against its plain version, the one
-   PyTorch call that computes the same loss, and the card's bound.
+   CUDA and Triton versions, the TF32 switches of the f32 preset, and
+   ``nvcc --version``; then the build of ``csrc/fused_ce.cu`` for sm_90a into
+   ``build/kernels/`` and its ``ptxas`` report (registers and spills of
+   each kernel instance).
+2. Each kernel against its plain PyTorch version on the card: the CUDA C++
+   fused masked-CE forward and backward over the test grid, the train
+   step's shape (B=128, W=100, 50 active) and a wide head (B=64, W=5000,
+   4321 active) that streams its rows, with smoothing 0 / 0.1 and f32 /
+   bf16 logits.  f32 must agree to rtol 1e-5 / atol 1e-6 (expf/logf and the
+   sum order differ from PyTorch's), bf16 outputs to rtol 1e-2 (one bf16
+   ulp), masked-column gradients must be exactly 0, the forward's in-kernel
+   ``out`` must equal ``scale · Σ per`` to rtol 1e-6 and be bitwise the same
+   over 10 launches.  The Triton kernels of the first design (off every path
+   of the port, kept for comparison) are held to the same tolerances.  Then,
+   at the train step's shape, both designs in turns (Triton, CUDA, CUDA,
+   Triton): each kernel's times, a CE round (forward and backward through
+   the ``autograd.Function``) and its kernel count from ``torch.profiler``
+   (2 for the CUDA design: a hard check), an empty kernel launched through
+   the same C path (the floor), the plain versions, the PyTorch calls that
+   compute the same functions, and the card's bound.
 3. The main path: the CLI's trainer on the race recipe at full width
    (``synthetic_hard128``, resnet32, 100-wide head, batch 128, B50-inc10, 6
    tasks) cut to 2 epochs a task, with ``--use_pallas_loss``.  Every
-   parameter must live on the card, every loss be finite, each kernel be
-   launched once per train step, the records come in the CLI's order, and
-   the trained model's eval forward on the card agree with the same model
-   on the CPU.
+   parameter must live on the card, every loss be finite, each CUDA kernel
+   be launched once per train step and no Triton kernel at all, the records
+   come in the CLI's order, and the trained model's eval forward on the
+   card agree with the same model on the CPU.
 4. Data parallel: two ranks started with ``torch.multiprocessing``, on
    ``nccl`` with a card each where there are two cards, else on ``gloo``
    with both ranks on the one card (NCCL refuses two ranks on one device).
@@ -35,18 +45,22 @@ Phases, in order; any failure exits non-zero before the result lines:
    the momentum, the raw gradient, is reported against a float64 step),
    the ranks must end bitwise equal, and each rank must
    launch each kernel once per step.  Then the sharded loss on a (64, 100,
-   50) stripe against its plain version over the 128 rows, and its times.
+   50) stripe against its plain version over the 128 rows, its times, and
+   its kernel count per round (2 besides the collective's own copies or
+   kernels: a hard check).
    (b) Protocol: the race recipe at 2 ranks x 64 rows, 1 epoch a task, 6
    tasks, through the CLI's trainer: the record sequence, finite losses,
    γ > 0 after task 0, kernel launches per rank equal to the train steps,
    and the same memory on both ranks.
-5. A ``{"kernels": [...]}`` line, then the card line
-   ``{"ok": true, "device": {...}}`` last.
+5. A ``{"ce_round": ...}`` line, a ``{"kernels": [...]}`` line, then the
+   card line ``{"ok": true, "device": {...}}`` last.
 
-Kernel times: ``ms`` from CUDA events between back-to-back launches (the
-launch spacing for kernels this small), ``device_ms`` the kernel's own time
-from ``torch.profiler`` over the same 100 launches (null where the profiler
-shows none).
+Times: ``ms`` is the device-side spacing between back-to-back calls queued
+behind a sleep kernel, each bracketed by CUDA events (the event records
+included; not the host's cost); ``device_ms`` the kernels' own time from
+``torch.profiler`` over 100 calls (null where the profiler shows none);
+``host_us`` the host clock over 100 calls queued behind a sleep kernel,
+divided by 100: what one call costs the host to enqueue.
 """
 
 from __future__ import annotations
@@ -72,7 +86,8 @@ MAIN_SHAPE = (128, 100, 50)  # the train step's (B, W, active) on task 0
 GRID = [(32, 100, 60), (64, 128, 128), (16, 7, 5), (13, 100, 60), (320, 100, 60),
         (384, 100, 60), MAIN_SHAPE, (64, 5000, 4321)]
 PORT = "a_pytorch_tutorial_to_class_incremental_learning_tpu_torch"
-KERNEL_SOURCE = f"{PORT}/ops/triton_fused_loss.py"
+CUDA_SOURCE = f"{PORT}/csrc/fused_ce.cu"
+TRITON_SOURCE = f"{PORT}/ops/triton_fused_loss.py"
 SHARDED_SOURCE = f"{PORT}/ops/fused_loss.py"
 JAX_KERNELS = "a_pytorch_tutorial_to_class_incremental_learning_tpu/ops/fused_loss.py"
 
@@ -100,7 +115,8 @@ def check(cond: bool, what: str) -> None:
 # --------------------------------------------------------------------------- #
 
 
-def phase_environment(torch) -> str:
+def phase_environment(torch):
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import cuda_build
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.platform import (
         use_full_f32,
     )
@@ -119,7 +135,53 @@ def phase_environment(torch) -> str:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
           "the f32 preset left TF32 on")
-    return smi
+    t0 = time.perf_counter()
+    try:
+        nvcc = cuda_build.find_nvcc()
+        lib = cuda_build.build("fused_ce", nvcc=nvcc)
+    except (cuda_build.NvccNotFound, cuda_build.BuildError) as exc:
+        raise SmokeFailure(str(exc)) from exc
+    version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60,
+                             check=True).stdout.strip().splitlines()
+    print(f"[env] {nvcc}: {' | '.join(version[-2:])}")
+    print(f"[env] {lib.relative_to(os.getcwd()) if lib.is_relative_to(os.getcwd()) else lib} "
+          f"ready in {time.perf_counter() - t0:.1f} s (flags: {' '.join(cuda_build.NVCC_FLAGS)})")
+    ptxas = _ptxas_summary(cuda_build.report_path("fused_ce").read_text())
+    check(bool(ptxas), "the ptxas report names no kernel")
+    for name, r in ptxas.items():
+        print(f"[ptxas] {name}: {r['registers']} registers, {r['stack']} B stack, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    return smi, ptxas
+
+
+def _ptxas_summary(report: str):
+    """{kernel instance: registers, stack frame and spill bytes} from
+    ``nvcc -Xptxas -v``, each instance named ``<kernel>[<dtype>,<vector>]``."""
+    import re
+
+    out, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        if current is None:
+            continue
+        kern = re.search(r"fused_ce_(fwd|bwd|empty)_sm90", current)
+        if not kern:
+            continue
+        inst = re.search(r"(F32|BF16)ELi(\d+)E", current)
+        name = kern.group(0) + (f"[{inst.group(1).lower()},{inst.group(2)}]" if inst else "")
+        r = out.setdefault(name, {"registers": None, "stack": None, "spill_stores": None,
+                                  "spill_loads": None})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            r["stack"], r["spill_stores"], r["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            r["registers"] = int(m.group(1))
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -136,45 +198,113 @@ def _inputs(torch, b, w, active, dtype, seed=0):
     return x.to(dtype), y, na
 
 
+def _triton_design(torch):
+    """The first design, called as the port called it before the CUDA
+    kernels: the same input checks, then the Triton launch; its
+    ``autograd.Function`` launches the forward kernel, takes ``per.mean()``
+    in a separate kernel, and launches the backward."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import (
+        triton_fused_loss as tfl,
+    )
+
+    def fwd(x, y, na, s):
+        fl._check(x, y, na)
+        return tfl.launch_fwd(x, y, na, s)
+
+    def bwd(x, y, na, lse, g, s):
+        fl._check(x, y, na)
+        return tfl.launch_bwd(x, y, na, lse, g.float().contiguous(), s)
+
+    class TritonCE(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, logits, labels, num_active, smoothing):
+            logits = logits.contiguous()
+            per, lse = fwd(logits, labels, num_active, smoothing)
+            ctx.save_for_backward(logits, labels, num_active, lse)
+            ctx.smoothing = smoothing
+            return per.mean()
+
+        @staticmethod
+        def backward(ctx, grad):
+            logits, labels, num_active, lse = ctx.saved_tensors
+            return bwd(logits, labels, num_active, lse, grad, ctx.smoothing), None, None, None
+
+    return fwd, bwd, TritonCE.apply
+
+
+def _agree(torch, got, ref, tol, what) -> float:
+    diff = (got.float() - ref.float()).abs().max().item()
+    check(torch.allclose(got.float(), ref.float(), **tol),
+          f"{what} disagrees with its plain version: max |diff| {diff}")
+    return diff
+
+
 def phase_kernels(torch):
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import (
+        triton_fused_loss as tfl,
+    )
 
-    err = {"fwd": 0.0, "bwd": 0.0}
+    t_fwd, t_bwd, _ = _triton_design(torch)
+    err = {"fwd": 0.0, "bwd": 0.0, "triton_fwd": 0.0, "triton_bwd": 0.0}
     for b, w, active in GRID:
         for dtype in (torch.float32, torch.bfloat16):
             for s in (0.0, 0.1):
                 x, y, na = _inputs(torch, b, w, active, dtype)
                 g = torch.tensor(1.0, device="cuda")
-                launches = (fl.FWD_LAUNCHES, fl.BWD_LAUNCHES)
-                per, lse = fl.fused_ce_fwd(x, y, na, s)
-                torch.cuda.synchronize()
-                dx = fl.fused_ce_bwd(x, y, na, lse, g, s)
-                torch.cuda.synchronize()
-                check((fl.FWD_LAUNCHES, fl.BWD_LAUNCHES) == (launches[0] + 1, launches[1] + 1),
-                      "a CUDA call did not launch its kernel")
-                ref_per, ref_lse = fl.fused_ce_fwd_plain(x, y, na, s)
-                ref_dx = fl.fused_ce_bwd_plain(x, y, na, ref_lse, g, s)
+                scale = 1.0 / b
+                ref_per, ref_lse, ref_out = fl.fused_ce_fwd_plain(x, y, na, s, scale)
+                ref_dx = fl.fused_ce_bwd_plain(x, y, na, ref_lse, g, s, scale)
                 tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
                        else dict(rtol=1e-2, atol=1e-5))
                 case = f"B={b} W={w} active={active} {str(dtype)[6:]} s={s}"
-                for name, got, ref in (("fwd", per, ref_per), ("fwd", lse, ref_lse),
-                                       ("bwd", dx, ref_dx)):
-                    ok = torch.allclose(got.float(), ref.float(), **tol)
-                    check(ok, f"{name} kernel disagrees with its plain version at {case}: "
-                              f"max |diff| {(got.float() - ref.float()).abs().max().item()}")
-                    if dtype == torch.float32 and (b, w, active) == MAIN_SHAPE:
-                        err[name] = max(err[name],
-                                        (got.float() - ref.float()).abs().max().item())
+                main = dtype == torch.float32 and (b, w, active) == MAIN_SHAPE
+
+                launches = (fl.FWD_LAUNCHES, fl.BWD_LAUNCHES)
+                per, lse, out = fl.fused_ce_fwd(x, y, na, s, scale)
+                torch.cuda.synchronize()
+                dx = fl.fused_ce_bwd(x, y, na, lse, g, s, scale)
+                torch.cuda.synchronize()
+                check((fl.FWD_LAUNCHES, fl.BWD_LAUNCHES) == (launches[0] + 1, launches[1] + 1),
+                      "a CUDA call did not launch its kernel")
+                diffs = {"fwd": max(_agree(torch, per, ref_per, tol, f"fused_ce_fwd per at {case}"),
+                                    _agree(torch, lse, ref_lse, tol, f"fused_ce_fwd lse at {case}"),
+                                    _agree(torch, out, ref_out, tol, f"fused_ce_fwd out at {case}")),
+                         "bwd": _agree(torch, dx, ref_dx, tol, f"fused_ce_bwd at {case}")}
+                check(torch.allclose(out, per.sum() * scale, rtol=1e-6, atol=0.0),
+                      f"in-kernel batch sum {out.item()} vs scale * sum(per) "
+                      f"{(per.sum() * scale).item()} at {case}")
+                outs = [fl.fused_ce_fwd(x, y, na, s, scale)[2] for _ in range(10)]
+                check(all(torch.equal(o, out) for o in outs),
+                      f"the forward's out is not bitwise the same over 10 launches at {case}: "
+                      f"{sorted({o.item() for o in outs})}")
                 check(bool(torch.all(dx[:, active:] == 0)),
                       f"masked-column gradient is not exactly 0 at {case}")
                 check(bool(torch.isfinite(per).all()), f"non-finite loss at {case}")
-        print(f"[kernels] B={b} W={w} active={active}: f32+bf16, s=0/0.1 agree")
+
+                launches = (tfl.FWD_LAUNCHES, tfl.BWD_LAUNCHES)
+                tper, tlse = t_fwd(x, y, na, s)
+                tdx = t_bwd(x, y, na, tlse, g, s)
+                torch.cuda.synchronize()
+                check((tfl.FWD_LAUNCHES, tfl.BWD_LAUNCHES) == (launches[0] + 1, launches[1] + 1),
+                      "a Triton call did not launch its kernel")
+                diffs["triton_fwd"] = max(_agree(torch, tper, ref_per, tol, f"Triton fwd at {case}"),
+                                          _agree(torch, tlse, ref_lse, tol, f"Triton lse at {case}"))
+                diffs["triton_bwd"] = _agree(torch, tdx, ref_dx, tol, f"Triton bwd at {case}")
+                check(bool(torch.all(tdx[:, active:] == 0)),
+                      f"Triton masked-column gradient is not exactly 0 at {case}")
+                if main:
+                    for k, v in diffs.items():
+                        err[k] = max(err[k], v)
+        print(f"[kernels] B={b} W={w} active={active}: CUDA and Triton, f32+bf16, s=0/0.1 agree; "
+              f"out = scale * sum(per), bitwise the same over 10 launches")
     return err
 
 
 def _device_ms(torch, fn, n=100, reps=5):
-    """Median device time of one ``fn()`` call in ms: ``n`` calls queued
-    behind a sleep kernel so they run back to back on the card, each
+    """Median device-side spacing of one ``fn()`` call in ms: ``n`` calls
+    queued behind a sleep kernel so they run back to back on the card, each
     bracketed by CUDA events; the median over ``reps * n`` calls."""
     fn()
     torch.cuda.synchronize()
@@ -191,10 +321,27 @@ def _device_ms(torch, fn, n=100, reps=5):
     return statistics.median(times)
 
 
-def _profiled_ms(torch, fn, kernel: str, n=100):
-    """The kernel's own device time per launch in ms, from ``torch.profiler``
-    over ``n`` launches (its events matched by name); None when the profiler
-    records no device time."""
+def _host_us(torch, fn, n=100, reps=5):
+    """Median host time of one ``fn()`` call in µs: the host clock over ``n``
+    calls queued behind a sleep kernel (so no call waits on the card),
+    divided by ``n``; the median of ``reps`` such runs."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def _profile(torch, fn, n=100):
+    """Device activity of ``n`` calls of ``fn`` (after one warm-up call) from
+    ``torch.profiler``: {kernel or copy name: [count, device µs]}."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -203,16 +350,39 @@ def _profiled_ms(torch, fn, kernel: str, n=100):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += (getattr(evt, "self_device_time_total", None)
-                         or getattr(evt, "self_cuda_time_total", 0.0) or 0.0)
+    out = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            entry = out.setdefault(evt.name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += evt.time_range.elapsed_us()
+    return out
+
+
+def _profiled_ms(torch, fn, kernel: str, n=100):
+    """The kernel's own device time per launch in ms, from ``torch.profiler``
+    over ``n`` launches (its events matched by name); None when the profiler
+    records no device time."""
+    total_us = sum(us for name, (_, us) in _profile(torch, fn, n).items() if kernel in name)
     if total_us <= 0:
         print(f"[timing] torch.profiler shows no device time for {kernel}; "
               "device_ms left null")
         return None
     return total_us / n / 1e3
+
+
+def _launches_per_call(prof, n):
+    """Kernel launches per call from a ``_profile`` result, with the copies
+    (``Memcpy``/``Memset``) and the collective's own device records
+    (``gloo:...``, NCCL's kernels) counted apart."""
+    kinds = {"kernels": {}, "copies": {}, "collective": {}}
+    for name, (count, _) in prof.items():
+        kind = ("copies" if name.startswith(("Memcpy", "Memset"))
+                else "collective" if name.startswith("gloo:") or "nccl" in name.lower()
+                else "kernels")
+        kinds[kind][name] = count / n
+    return {"launches": sum(kinds["kernels"].values()), **kinds,
+            "device_ms": sum(us for _, us in prof.values()) / n / 1e3}
 
 
 def _host_ms(torch, fn, n=100):
@@ -238,42 +408,125 @@ def _bound(t) -> None:
 
 
 def _fwd_bytes(b, w):
-    return b * w * 4 + b * 8 + 4 + 2 * b * 4  # logits, labels, na -> per, lse
+    return b * w * 4 + b * 8 + 4 + 2 * b * 4 + 4  # logits, labels, na -> per, lse, out
+
+
+def _mean(xs):
+    return sum(xs) / len(xs)
 
 
 def phase_timing(torch):
+    """Both designs at the train step's shape, in turns (Triton, CUDA, CUDA,
+    Triton): per kernel ``ms``, ``device_ms`` and ``host_us``; per CE round
+    (value and gradient through the ``autograd.Function``) the same and its
+    kernel count; then the empty kernel (the floor), the plain versions and
+    the library calls."""
     import torch.nn.functional as F
 
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import cuda_build
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
 
     b, w, active = MAIN_SHAPE
+    scale = 1.0 / b
     x, y, na = _inputs(torch, b, w, active, torch.float32, seed=1)
+    xg = x.clone().requires_grad_(True)
     g = torch.tensor(1.0, device="cuda")
-    _, lse = fl.fused_ce_fwd(x, y, na, 0.0)
-    bwd_bytes = 2 * b * w * 4 + b * 8 + 4 + b * 4 + 4  # + lse, g -> dx
-    out = {
-        "fwd": {
-            "ms": _device_ms(torch, lambda: fl.fused_ce_fwd(x, y, na, 0.0)),
-            "device_ms": _profiled_ms(torch, lambda: fl.fused_ce_fwd(x, y, na, 0.0),
-                                      "fwd_kernel"),
-            "plain_ms": _device_ms(torch, lambda: fl.fused_ce_fwd_plain(x, y, na, 0.0)),
-            "library_ms": _device_ms(torch, lambda: F.cross_entropy(x[:, :active], y)),
-            "bytes": _fwd_bytes(b, w), "ops": 6 * b * w,
-        },
-        "bwd": {
-            "ms": _device_ms(torch, lambda: fl.fused_ce_bwd(x, y, na, lse, g, 0.0)),
-            "device_ms": _profiled_ms(torch, lambda: fl.fused_ce_bwd(x, y, na, lse, g, 0.0),
-                                      "bwd_kernel"),
-            "plain_ms": _device_ms(torch, lambda: fl.fused_ce_bwd_plain(x, y, na, lse, g, 0.0)),
-            "library_ms": None,  # no one PyTorch call computes this gradient
-            "bytes": bwd_bytes, "ops": 7 * b * w,
-        },
+    one = torch.ones((), device="cuda")  # the upstream gradient, made once
+    lse = fl.fused_ce_fwd(x, y, na, 0.0, scale)[1]
+    t_fwd, t_bwd, t_ce = _triton_design(torch)
+
+    def round_of(ce):
+        return lambda: torch.autograd.grad(ce(xg, y, na, 0.0), xg, grad_outputs=one)
+
+    calls = {
+        "cuda": {"fwd": (lambda: fl.fused_ce_fwd(x, y, na, 0.0, scale), "fused_ce_fwd_sm90"),
+                 "bwd": (lambda: fl.fused_ce_bwd(x, y, na, lse, g, 0.0, scale),
+                         "fused_ce_bwd_sm90"),
+                 "round": (round_of(fl.fused_masked_cross_entropy), None)},
+        "triton": {"fwd": (lambda: t_fwd(x, y, na, 0.0), "fwd_kernel"),
+                   "bwd": (lambda: t_bwd(x, y, na, lse, g, 0.0), "bwd_kernel"),
+                   "round": (round_of(t_ce), None)},
     }
-    for name, t in out.items():
+    turns = {d: {op: {"ms": [], "device_ms": [], "host_us": []} for op in calls[d]}
+             for d in calls}
+    kernels = {}
+    for design in ("triton", "cuda", "cuda", "triton"):
+        for op, (fn, kernel) in calls[design].items():
+            t = turns[design][op]
+            t["ms"].append(_device_ms(torch, fn))
+            t["host_us"].append(_host_us(torch, fn))
+            if kernel is None:  # a round: every kernel it launches
+                n = 50
+                counted = _launches_per_call(_profile(torch, fn, n), n)
+                t["device_ms"].append(counted["device_ms"])
+                kernels[design] = counted
+            else:
+                t["device_ms"].append(_profiled_ms(torch, fn, kernel))
+    for design, c in kernels.items():
+        print(f"[timing] {design} CE round: {c['launches']:g} kernel launches "
+              f"{c['kernels']}, copies {c['copies']}")
+    check(kernels["cuda"]["launches"] == 2 and not kernels["cuda"]["copies"],
+          f"a CUDA CE round launched {kernels['cuda']} (want the forward and the backward)")
+
+    lib = cuda_build.load("fused_ce")
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    dev = torch.cuda.current_device()
+
+    def empty():
+        check(lib.fused_ce_empty_launch(dev, stream) == 0, "the empty kernel did not launch")
+
+    floor = {"ms": _device_ms(torch, empty), "host_us": _host_us(torch, empty),
+             "device_ms": _profiled_ms(torch, empty, "fused_ce_empty_sm90")}
+    print(f"[timing] floor (empty kernel through the C path): ms={floor['ms']:.5f} "
+          f"device_ms={floor['device_ms']} host_us={floor['host_us']:.2f}")
+
+    def plain_round():
+        _, plse, _ = fl.fused_ce_fwd_plain(x, y, na, 0.0, scale)
+        return fl.fused_ce_bwd_plain(x, y, na, plse, g, 0.0, scale)
+
+    library_round = _device_ms(torch, lambda: torch.autograd.grad(
+        F.cross_entropy(xg[:, :active], y, label_smoothing=0.0), xg, grad_outputs=one))
+    library_round_host = _host_us(torch, lambda: torch.autograd.grad(
+        F.cross_entropy(xg[:, :active], y, label_smoothing=0.0), xg, grad_outputs=one))
+    extra = {
+        "fwd": {"plain_ms": _device_ms(torch, lambda: fl.fused_ce_fwd_plain(x, y, na, 0.0, scale)),
+                "library_ms": _device_ms(torch, lambda: F.cross_entropy(x[:, :active], y)),
+                "library_host_us": _host_us(torch, lambda: F.cross_entropy(x[:, :active], y)),
+                "library_call": "F.cross_entropy(logits[:, :50], labels)",
+                "bytes": _fwd_bytes(b, w), "ops": 6 * b * w},
+        # No one PyTorch call computes the gradient alone: the yardstick is
+        # the library's round, which computes the value and the gradient.
+        "bwd": {"plain_ms": _device_ms(torch, lambda: fl.fused_ce_bwd_plain(
+                    x, y, na, lse, g, 0.0, scale)),
+                "library_ms": library_round, "library_host_us": library_round_host,
+                "library_call": "F.cross_entropy(logits[:, :50], labels) and its backward",
+                "bytes": 2 * b * w * 4 + b * 8 + 4 + b * 4 + 4, "ops": 7 * b * w},
+        "round": {"plain_ms": _device_ms(torch, plain_round),
+                  "library_ms": library_round, "library_host_us": library_round_host,
+                  "library_call": "F.cross_entropy(logits[:, :50], labels) and its backward",
+                  # logits, labels, na, g -> out, dlogits
+                  "bytes": 2 * b * w * 4 + b * 8 + 4 + 4 + 4, "ops": 13 * b * w},
+    }
+    out = {}
+    for op in ("fwd", "bwd", "round"):
+        t = dict(extra[op])
         _bound(t)
-        print(f"[timing] fused_ce_{name} B={b} W={w}: kernel_ms={t['ms']:.5f} "
-              f"device_ms={t['device_ms']} plain_ms={t['plain_ms']:.5f} "
-              f"library_ms={t['library_ms']} bound_ms={t['bound_ms']:.6f} ({t['bound_by']})")
+        for design in ("cuda", "triton"):
+            tt = turns[design][op]
+            dev_ms = [v for v in tt["device_ms"] if v is not None]
+            t[design] = {"ms": _mean(tt["ms"]), "device_ms": _mean(dev_ms) if dev_ms else None,
+                         "host_us": _mean(tt["host_us"]), "turns": tt}
+        if op == "round":
+            t["launches"] = {d: kernels[d]["launches"] for d in kernels}
+        t["floor"] = floor
+        out[op] = t
+        c, tr = t["cuda"], t["triton"]
+        print(f"[timing] {op} B={b} W={w}: CUDA ms={c['ms']:.5f} device_ms={c['device_ms']} "
+              f"host_us={c['host_us']:.2f} | Triton ms={tr['ms']:.5f} "
+              f"device_ms={tr['device_ms']} host_us={tr['host_us']:.2f} | "
+              f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
+              f"library_host_us={t['library_host_us']:.2f} "
+              f"bound_ms={t['bound_ms']:.7f} ({t['bound_by']})")
     return out
 
 
@@ -285,6 +538,9 @@ def phase_timing(torch):
 def phase_main_path(torch):
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import (
+        triton_fused_loss as tfl,
+    )
 
     epochs = 2
     with tempfile.TemporaryDirectory() as tmp:
@@ -301,18 +557,21 @@ def phase_main_path(torch):
         off += [n for n, t in model.named_buffers() if t.device.type != "cuda"]
         check(not off, f"tensors off the card: {off[:5]}")
 
-        fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = 0
+        fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = tfl.FWD_LAUNCHES = tfl.BWD_LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = trainer.fit()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = {"fwd": fl.FWD_LAUNCHES, "bwd": fl.BWD_LAUNCHES}
+        launches = {"fwd": fl.FWD_LAUNCHES, "bwd": fl.BWD_LAUNCHES,
+                    "triton_fwd": tfl.FWD_LAUNCHES, "triton_bwd": tfl.BWD_LAUNCHES}
         records = [json.loads(ln) for ln in open(log)]
 
     steps = trainer.global_step
     check(steps > 0 and launches["fwd"] == launches["bwd"] == steps,
           f"kernel launches {launches} != train steps {steps}")
+    check(launches["triton_fwd"] == launches["triton_bwd"] == 0,
+          f"the main path launched Triton kernels: {launches}")
     types = [r["type"] for r in records]
     nb_tasks = result["nb_tasks"]
     want = ["run"] + (["epoch"] * epochs + ["task", "cil_metrics"]) * nb_tasks + ["final"]
@@ -347,6 +606,7 @@ def phase_main_path(torch):
     )
     print(f"[main] {steps} train steps in {nb_tasks} tasks, {wall_s:.1f} s wall; "
           f"median step {step_ms:.3f} ms; launches {launches}")
+    launches["step_ms"] = step_ms
     print(f"[main] acc1 per task: {[round(a, 3) for a in result['acc1s']]}")
     print(f"[main] gammas: {[t['gamma'] for t in tasks]}")
     return launches
@@ -472,26 +732,44 @@ def _sharded_stripe(torch, dist, fl, axis):
     xg = x.clone().requires_grad_(True)
     loss = fl.sharded_fused_masked_cross_entropy(axis.group, xg, y, na, 0.0)
     (dx,) = torch.autograd.grad(loss, xg)
-    per, lse = fl.fused_ce_fwd_plain(full_x, full_y, na, 0.0)
+    scale = 1.0 / (b * axis.size)
+    _, lse, ref = fl.fused_ce_fwd_plain(full_x, full_y, na, 0.0, scale)
     ref_dx = fl.fused_ce_bwd_plain(full_x, full_y, na, lse, torch.tensor(1.0, device="cuda"),
-                                   0.0)[rows]
-    err = max((loss - per.mean()).abs().item(), (dx - ref_dx).abs().max().item())
-    ok = (torch.allclose(loss, per.mean(), rtol=1e-5, atol=1e-6)
+                                   0.0, scale)[rows]
+    err = max((loss - ref).abs().item(), (dx - ref_dx).abs().max().item())
+    ok = (torch.allclose(loss, ref, rtol=1e-5, atol=1e-6)
           and torch.allclose(dx, ref_dx, rtol=1e-5, atol=1e-6)
           and bool(torch.all(dx[:, active:] == 0)))
     t = {"max_abs_err": err, "ok": ok, "bytes": _fwd_bytes(b, w), "ops": 6 * b * w}
     if axis.rank == 0:
-        t["kernel_ms"] = _device_ms(torch, lambda: fl.fused_ce_fwd(x, y, na, 0.0))
-        t["device_ms"] = _profiled_ms(torch, lambda: fl.fused_ce_fwd(x, y, na, 0.0),
-                                      "fwd_kernel")
+        t["kernel_ms"] = _device_ms(torch, lambda: fl.fused_ce_fwd(x, y, na, 0.0, scale))
+        t["device_ms"] = _profiled_ms(torch, lambda: fl.fused_ce_fwd(x, y, na, 0.0, scale),
+                                      "fused_ce_fwd_sm90")
         t["library_ms"] = _device_ms(torch, lambda: F.cross_entropy(x[:, :active], y))
+    dist.barrier()
+    # One sharded round (value and stripe gradient) a call; rank 0 profiles
+    # its calls while rank 1 makes as many, since each call all-reduces.
+    xr = x.clone().requires_grad_(True)
+    one = torch.ones((), device="cuda")
+
+    def sharded_round():
+        loss = fl.sharded_fused_masked_cross_entropy(axis.group, xr, y, na, 0.0)
+        return torch.autograd.grad(loss, xr, grad_outputs=one)
+
+    n = 20
+    if axis.rank == 0:
+        t["round"] = _launches_per_call(_profile(torch, sharded_round, n), n)
+    else:
+        for _ in range(n + 1):
+            sharded_round()
+    torch.cuda.synchronize()
     dist.barrier()
     scalar = torch.zeros((), device="cuda")
 
     def plain():
-        total = fl.fused_ce_fwd_plain(x, y, na, 0.0)[0].sum()
-        dist.all_reduce(total, group=axis.group)
-        return total / (b * axis.size)
+        out = fl.fused_ce_fwd_plain(x, y, na, 0.0, scale)[2]
+        dist.all_reduce(out, group=axis.group)
+        return out
 
     t["allreduce_ms"] = _host_ms(torch, lambda: dist.all_reduce(scalar, group=axis.group))
     t["ms"] = _host_ms(torch, lambda: fl.sharded_fused_masked_cross_entropy(
@@ -676,6 +954,11 @@ def phase_data_parallel(torch):
           f"device_ms={sharded['device_ms']} allreduce_ms={sharded['allreduce_ms']:.5f} "
           f"plain_ms={sharded['plain_ms']:.5f} library_ms={sharded['library_ms']:.5f} "
           f"bound_ms={sharded['bound_ms']:.6f} ({sharded['bound_by']})")
+    rnd = sharded["round"]
+    print(f"[timing] sharded CE round ({backend}): {rnd['launches']:g} kernel launches "
+          f"{rnd['kernels']}; collective {rnd['collective']}; copies {rnd['copies']}")
+    check(rnd["launches"] == 2,
+          f"a sharded CE round launched {rnd['kernels']} (want the forward and the backward)")
 
     # (b) Protocol.
     nb_tasks = 6
@@ -734,7 +1017,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
     try:
-        smi = phase_environment(torch)
+        smi, ptxas = phase_environment(torch)
         err = phase_kernels(torch)
         timing = phase_timing(torch)
         launches = phase_main_path(torch)
@@ -745,23 +1028,53 @@ def main() -> int:
     kernels = []
     for name, line in (("fwd", 47), ("bwd", 72)):
         t = timing[name]
+        c = t["cuda"]
+        common = {"replaces": f"{JAX_KERNELS}:{line}", "plain_ms": t["plain_ms"],
+                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                  "library_ms": t["library_ms"], "library_call": t["library_call"],
+                  "library_host_us": t["library_host_us"], "shape": list(MAIN_SHAPE)}
         kernels.append({
-            "name": f"fused_ce_{name}", "route": "triton", "source": KERNEL_SOURCE,
-            "replaces": f"{JAX_KERNELS}:{line}", "launches": launches[name],
-            "max_abs_err": err[name], "ms": t["ms"], "device_ms": t["device_ms"],
+            "name": f"fused_ce_{name}", "route": "cuda", "source": CUDA_SOURCE,
+            "kernel": f"fused_ce_{name}_sm90", "on_path": True, "launches": launches[name],
+            "max_abs_err": err[name], "ms": c["ms"], "device_ms": c["device_ms"],
+            "host_us": c["host_us"], "floor_ms": t["floor"]["device_ms"],
+            "floor_spacing_ms": t["floor"]["ms"], "floor_host_us": t["floor"]["host_us"],
+            "turns": c["turns"],
+            "ptxas": {k: v for k, v in ptxas.items() if f"fused_ce_{name}_sm90" in k},
+            **common,
+        })
+    for name, line in (("fwd", 47), ("bwd", 72)):
+        t = timing[name]
+        tr = t["triton"]
+        kernels.append({
+            "name": f"triton_fused_ce_{name}", "route": "triton", "source": TRITON_SOURCE,
+            "kernel": f"{name}_kernel", "on_path": False,
+            "launches": launches[f"triton_{name}"], "max_abs_err": err[f"triton_{name}"],
+            "ms": tr["ms"], "device_ms": tr["device_ms"], "host_us": tr["host_us"],
+            "turns": tr["turns"], "replaces": f"{JAX_KERNELS}:{line}",
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "shape": list(MAIN_SHAPE),
         })
     t = dp["sharded"]
     kernels.append({
-        "name": "sharded_fused_ce", "route": "triton", "source": SHARDED_SOURCE,
+        "name": "sharded_fused_ce", "route": "cuda", "source": SHARDED_SOURCE,
         "replaces": f"{JAX_KERNELS}:191", "launches": dp["launches"],
         "launches_per_rank": dp["launches_per_rank"], "backend": dp["backend"],
         "shape": list(DP_STRIPE), "max_abs_err": t["max_abs_err"], "ms": t["ms"],
         "kernel_ms": t["kernel_ms"], "device_ms": t["device_ms"],
         "allreduce_ms": t["allreduce_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "round_launches": t["round"]["launches"], "round_collective": t["round"]["collective"],
+        "round_copies": t["round"]["copies"],
     })
+    r = timing["round"]
+    print(json.dumps({"ce_round": {
+        "shape": list(MAIN_SHAPE), "cuda": r["cuda"], "triton": r["triton"],
+        "launches": r["launches"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+        "library_host_us": r["library_host_us"], "library_call": r["library_call"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "floor": r["floor"],
+        "main_path_step_ms": launches["step_ms"],
+    }}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Tests of the port that need a CUDA card: the Triton kernels against their
-plain versions, and a train step through the kernels against the same step
-through the plain loss.  They skip without a card.  This file imports no
-JAX, so it also runs where JAX is not installed:
+"""Tests of the port that need a CUDA card: the CUDA C++ kernels against
+their plain versions, the forward's in-kernel batch reduction, and a train
+step through the kernels against the same step through the plain loss.
+They skip without a card.  This file imports no JAX, so it also runs where
+JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -26,7 +27,7 @@ GRID = [(32, 100, 60), (64, 128, 128), (16, 7, 5), (13, 100, 60), (128, 100, 50)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the Triton kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     use_full_f32()
     return torch.device("cuda")
 
@@ -48,19 +49,30 @@ def test_kernels_match_plain(cuda, b, width, active, smooth, dtype):
     na = torch.tensor([active], dtype=torch.int32, device=cuda)
     g = torch.tensor(0.5, device=cuda)
     launches = (fused_loss.FWD_LAUNCHES, fused_loss.BWD_LAUNCHES)
-    per, lse = fused_loss.fused_ce_fwd(x, y, na, smooth)
-    dx = fused_loss.fused_ce_bwd(x, y, na, lse, g, smooth)
+    per, lse, out = fused_loss.fused_ce_fwd(x, y, na, smooth, 1.0 / b)
+    dx = fused_loss.fused_ce_bwd(x, y, na, lse, g, smooth, 1.0 / b)
     torch.cuda.synchronize()
     assert (fused_loss.FWD_LAUNCHES, fused_loss.BWD_LAUNCHES) == (launches[0] + 1,
                                                                   launches[1] + 1)
-    ref_per, ref_lse = fused_loss.fused_ce_fwd_plain(x, y, na, smooth)
-    ref_dx = fused_loss.fused_ce_bwd_plain(x, y, na, ref_lse, g, smooth)
+    ref_per, ref_lse, _ = fused_loss.fused_ce_fwd_plain(x, y, na, smooth, 1.0 / b)
+    ref_dx = fused_loss.fused_ce_bwd_plain(x, y, na, ref_lse, g, smooth, 1.0 / b)
     tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
     torch.testing.assert_close(per, ref_per, **tol)
     torch.testing.assert_close(lse, ref_lse, **tol)
+    # The in-kernel reduction sums the kernel's own per-sample losses.
+    torch.testing.assert_close(out, per.sum() * (1.0 / b), rtol=1e-6, atol=0.0)
     assert dx.dtype == dtype
     torch.testing.assert_close(dx.float(), ref_dx.float(), **tol)
     assert torch.all(dx[:, active:] == 0)
+
+
+@pytest.mark.parametrize("b,width,active", [(128, 100, 50), (13, 100, 60), (64, 5000, 4321)])
+def test_forward_reduction_is_bitwise_reproducible(cuda, b, width, active):
+    x, y = _masked_logits(b, width, active, seed=4)
+    x, y = x.to(cuda), y.to(cuda)
+    na = torch.tensor([active], dtype=torch.int32, device=cuda)
+    outs = [fused_loss.fused_ce_fwd(x, y, na, 0.1, 1.0 / b)[2] for _ in range(10)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
 def test_train_step_through_kernels_matches_plain_loss(cuda):

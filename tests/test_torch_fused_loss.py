@@ -116,6 +116,22 @@ def test_bf16_logits_accumulate_in_f32():
     assert torch.all(grad[:, 60:] == 0)
 
 
+@pytest.mark.parametrize("smooth", [0.0, 0.1])
+@pytest.mark.parametrize("b,width,active", GRID)
+def test_forward_returns_the_scaled_batch_sum(smooth, b, width, active):
+    """``out`` is ``scale · Σ per``: the batch mean at ``1/B``, a rank's
+    share of the global mean at ``1/(B·N)``."""
+    logits, labels = _masked_logits(b, width, active, seed=7)
+    x, y = torch.from_numpy(logits), torch.from_numpy(labels)
+    for scale in (1.0 / b, 1.0 / (4 * b), 1.0):
+        per, lse, out = fused_ce_fwd(x, y, _na(active), smooth, scale)
+        assert per.shape == lse.shape == (b,) and out.shape == ()
+        assert out.dtype == per.dtype == lse.dtype == torch.float32
+        assert float(out) == float(per.sum() * scale)
+    np.testing.assert_allclose(float(fused_ce_fwd(x, y, _na(active), smooth, 1.0 / b)[2]),
+                               float(per.mean()), rtol=1e-6)
+
+
 def test_cpu_calls_count_no_kernel_launch():
     before = (fused_loss.FWD_LAUNCHES, fused_loss.BWD_LAUNCHES)
     logits, labels = _masked_logits(8, 10, 5)
@@ -143,5 +159,5 @@ def test_wrapper_rejects_what_it_does_not_take(bad):
     elif bad == "strided":
         x = x.t()
     with pytest.raises((ValueError, TypeError)):
-        fused_ce_fwd(x, y, na, 0.0)
+        fused_ce_fwd(x, y, na, 0.0, 1.0 / 8)
 
