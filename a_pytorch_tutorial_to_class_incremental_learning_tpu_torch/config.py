@@ -1,8 +1,9 @@
 """Experiment configuration: the frozen ``CilConfig`` and the CLI parser.
 
 Same field names, flag names and defaults as the JAX package's
-``config.py``, so one argv drives either trainer.  The port runs the race
-recipe (crop + flip, f32, per-step loop) on one device or data parallel over
+``config.py``, so one argv drives either trainer.  The port runs the parser's
+augmentation (RandAugment or colour jitter, random erasing) under every
+precision preset, on the per-step loop, on one device or data parallel over
 N processes; every flag that selects something outside it is rejected by
 :func:`check_supported` (or, for ``--mesh_model``, ``parallel.data_axis``)
 with the name of the slice that will bring it, never silently ignored.
@@ -151,11 +152,6 @@ class CilConfig:
 
 # (field, predicate that is True when the value is outside this slice, slice)
 _LATER_SLICES = (
-    ("aa", lambda v: v not in (None, "none", "None", ""), "augmentation (RandAugment)"),
-    ("color_jitter", lambda v: v > 0, "augmentation (color jitter)"),
-    ("reprob", lambda v: v > 0, "augmentation (random erasing)"),
-    ("precision", lambda v: v not in ("", "f32"), "precision"),
-    ("compute_dtype", lambda v: v != "float32", "precision"),
     ("ckpt_dir", lambda v: v is not None, "checkpoints"),
     ("resume", bool, "checkpoints"),
     ("epoch_ckpt_every", lambda v: v > 0, "checkpoints"),
@@ -183,8 +179,7 @@ def check_supported(config: CilConfig) -> None:
         if outside(value):
             raise NotImplementedError(
                 f"{field}={value!r} is not ported yet: it arrives with the "
-                f"{later} slice of the PyTorch port (it runs crop + flip "
-                "augmentation in f32; pass e.g. --aa none --color_jitter 0)"
+                f"{later} slice of the PyTorch port"
             )
 
 

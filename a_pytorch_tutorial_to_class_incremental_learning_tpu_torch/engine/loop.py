@@ -8,6 +8,11 @@ copy), herd the next memory, and write the ``run/epoch/task/cil_metrics/
 final`` JSONL records.  The fused epoch, prefetch, telemetry spans,
 checkpoints, faults, lockstep and export arrive with later slices.
 
+The precision policy is resolved once from the config (``--precision``
+wins over ``--compute_dtype``) and handed to the model, the teacher (a copy
+of it) and the train step; TF32 stays off, so the f32 parts of every preset
+are full f32.
+
 Data parallel over N processes (``torchrun ... --mesh_data N``): the global
 batch is ``batch_size × N`` and rank ``r`` trains on, and evaluates, the
 stripe ``[r·b, (r+1)·b)`` of each global batch; the eval totals are
@@ -39,6 +44,7 @@ from ..data import (
 )
 from ..data.augment import AugmentConfig
 from ..models import align, create_model, group_span, grow
+from ..ops.precision import policy_from_config
 from ..parallel import barrier, broadcast_module, data_axis
 from ..telemetry import AccuracyMatrix, average_incremental_accuracy
 from ..utils.logging import JsonlLogger, MetricLogger
@@ -92,13 +98,14 @@ class CilTrainer:
                 f"but --input_size is {config.input_size}"
             )
         self.aug_cfg = AugmentConfig.from_config(config)
+        self.policy = policy_from_config(config)
         # batch_size is per process, as the reference's per-GPU batch.
         self.global_batch_size = config.batch_size * self.axis.size
 
         model = create_model(
             config.backbone, self.nb_classes,
             seed=derive_seed(config.seed, _INIT_STREAM),
-            bn_group_size=config.bn_group_size, axis=self.axis,
+            bn_group_size=config.bn_group_size, axis=self.axis, policy=self.policy,
         ).to(self.device)
         if self.axis.sharded:
             broadcast_module(model, self.axis.group)
@@ -117,6 +124,7 @@ class CilTrainer:
         )
         self.train_step = make_train_step(
             self.aug_cfg,
+            self.policy,
             label_smoothing=config.smooth,
             kd_temperature=config.kd_temperature,
             momentum=config.momentum,
@@ -144,7 +152,7 @@ class CilTrainer:
             aa=config.aa,
             memory_size=config.memory_size,
             compute_dtype=config.compute_dtype,
-            precision="f32",
+            precision=self.policy.name,
             backend=f"torch-{self.device.type}",
             device_name=(torch.cuda.get_device_name(self.device)
                          if self.device.type == "cuda" else "cpu"),

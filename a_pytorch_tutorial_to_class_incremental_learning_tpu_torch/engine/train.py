@@ -6,6 +6,13 @@ updated) -> masked CE, through the fused kernel with ``use_pallas_loss`` ->
 teacher forward (eval mode, no grad) + λ·KD -> backward -> SGD.  Step
 metrics stay on the device; the loop fetches them once per epoch.
 
+Precision: the model carries its policy (``ops/precision.py``) and casts at
+the JAX package's cast points; the logits, the losses, the parameters, the
+momentum and the gradient all-reduce stay f32 under every preset.  The
+fused loss kernel runs only under a preset it is registered for
+(``kernel_policy_compatible``); any other combination raises, where the
+JAX package would fall back to the plain loss.
+
 Data parallel (``group``, the process group of the data axis): each rank
 holds a stripe of the global batch and its loss terms are its *shares* of
 the global-batch loss (local mean / N); the masked CE with
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 from ..data.augment import AugmentConfig, eval_preprocess, train_augment
 from ..models import CilModel
 from ..ops import fused_masked_cross_entropy, sharded_fused_masked_cross_entropy
+from ..ops.precision import Policy, kernel_policy_compatible
 from ..parallel.mesh import DataAxis, all_reduce_sum
 from .losses import accuracy, cross_entropy, soft_target_kd, topk_correct
 
@@ -82,6 +90,19 @@ def cosine_lr(base_lr: float, epoch: int, num_epochs: int) -> float:
     return base_lr * 0.5 * (1.0 + math.cos(math.pi * epoch / num_epochs))
 
 
+LOSS_KERNEL = "fused_masked_cross_entropy"
+
+
+def require_loss_kernel(policy: Policy) -> None:
+    """Raise unless the fused loss kernel is registered for ``policy``."""
+    if not kernel_policy_compatible(LOSS_KERNEL, policy):
+        raise ValueError(
+            f"{LOSS_KERNEL} is not registered for the {policy.name!r} precision "
+            "policy (ops/precision.register_policy_kernel); run without "
+            "--use_pallas_loss or with a registered preset"
+        )
+
+
 def train_step_on_batch(
     state: TrainState,
     teacher: Optional[Teacher],
@@ -101,6 +122,8 @@ def train_step_on_batch(
     rank's stripe of the global batch when ``group`` is given.  The metrics
     are the global batch's on every rank."""
     model = state.model
+    if use_pallas_loss:
+        require_loss_kernel(model.policy)
     params = list(model.parameters())
     logits, _ = model(x, state.num_active, train=True)
     if use_pallas_loss and group is not None:
@@ -137,6 +160,7 @@ def train_step_on_batch(
 
 def make_train_step(
     aug_cfg: AugmentConfig,
+    policy: Policy,
     label_smoothing: float,
     kd_temperature: float,
     momentum: float,
@@ -146,8 +170,12 @@ def make_train_step(
 ):
     """``step(state, teacher, x_u8, labels, generator, lr, lambda_kd) ->
     metrics``: augment with ``generator``, then :func:`train_step_on_batch`;
-    on a sharded ``axis``, ``x_u8`` is this rank's stripe."""
+    on a sharded ``axis``, ``x_u8`` is this rank's stripe.  With
+    ``use_pallas_loss``, the run's ``policy`` must be one the kernel is
+    registered for (checked here, and at each step against the model's)."""
     axis = axis or DataAxis()
+    if use_pallas_loss:
+        require_loss_kernel(policy)
 
     def step(state, teacher, x_u8, labels, generator, lr, lambda_kd):
         x = train_augment(x_u8, aug_cfg, generator, axis.rank, axis.size)

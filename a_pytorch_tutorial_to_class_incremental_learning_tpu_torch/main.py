@@ -1,12 +1,13 @@
 """CLI entry point.
 
 Run as ``python -m a_pytorch_tutorial_to_class_incremental_learning_tpu_torch``
-with the JAX package's flags; the race recipe on CUDA::
+with the JAX package's flags; its dynamics protocol (RandAugment, the
+parser's default) on CUDA::
 
     python -m a_pytorch_tutorial_to_class_incremental_learning_tpu_torch \\
         --data_set synthetic_hard128 --backbone resnet32 --num_bases 50 \\
-        --increment 10 --batch_size 128 --memory_size 256 --aa none \\
-        --color_jitter 0 --num_epochs 20 --use_pallas_loss
+        --increment 10 --batch_size 128 --memory_size 256 --num_epochs 35 \\
+        --use_pallas_loss [--precision f32|bf16_all|bf16_selective]
 
 ``--platform cpu`` runs on the CPU; the default needs a CUDA device.
 

@@ -51,8 +51,19 @@ def masked_logits(
     weight: torch.Tensor,
     bias: torch.Tensor,
     num_active: Union[int, torch.Tensor],
+    head_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """``[B, 64] -> [B, width]`` logits with columns ``>= num_active`` masked."""
+    """``[B, 64] -> [B, width]`` f32 logits with columns ``>= num_active``
+    masked.
+
+    A ``head_dtype`` narrower than f32 rounds both operands to it (the f32
+    master weight at the call) and multiplies them in f32: the product of
+    two bf16 values is exact in f32, so this is JAX's bf16 matmul with
+    ``preferred_element_type=float32``, where a bf16 ``F.linear`` would
+    round the logits to bf16."""
+    if torch.finfo(head_dtype).bits < 32:
+        features = features.to(head_dtype).float()
+        weight = weight.to(head_dtype).float()
     logits = F.linear(features, weight, bias)
     cols = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(cols < num_active, logits, NEG_INF)

@@ -16,6 +16,15 @@ the gradient), and normalizes with the global-batch statistics, as flax
 does on a data-sharded batch.  ``GroupedBatchNorm`` keeps its groups on one
 rank when the group size divides the per-rank batch, and otherwise all-
 reduces over the consecutive ranks one group spans.
+
+A bf16 input follows flax's ``BatchNorm(dtype=bfloat16)`` (and the JAX
+``GroupedBatchNorm``): the input is upcast, the statistics, the
+normalization, the scale and the shift run in f32, and only the output is
+rounded to bf16; the running statistics stay f32.  flax reduces the
+statistics from one f32 copy of the input and normalizes another, so in
+train mode the backward rounds each copy's gradient to bf16 and sums the
+two in bf16; ``BatchNorm`` upcasts twice to do the same (the JAX
+``GroupedBatchNorm`` upcasts once, and so does the port's).
 """
 
 from __future__ import annotations
@@ -33,6 +42,11 @@ from ..parallel.mesh import DataAxis
 
 def _channel(v: torch.Tensor) -> torch.Tensor:
     return v[None, :, None, None]
+
+
+def stats_dtype(dtype: torch.dtype) -> torch.dtype:
+    """BatchNorm's arithmetic dtype: at least f32 (flax promotes the same)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def all_reduce_moments(x: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -89,22 +103,28 @@ class BatchNorm(nn.Module):
         self.running_var.mul_(1.0 - m).add_(var, alpha=m)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        dt = stats_dtype(x.dtype)
         if not train:
             return F.batch_norm(
-                x, self.running_mean, self.running_var, self.weight, self.bias,
+                x.to(dt), self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
+            ).to(x.dtype)
+        if self.world == 1 and x.dtype == dt:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                self._update_running(mean, var)
+            return F.batch_norm(
+                x, None, None, self.weight, self.bias, True, 0.0, self.eps
             )
+        stats_copy = x.to(dt)
         if self.world > 1:
-            mean, var = all_reduce_moments(x, self.axis.group)
-            self._update_running(mean.detach(), var.detach())
-            scale = torch.rsqrt(var + self.eps) * self.weight
-            return (x - _channel(mean)) * _channel(scale) + _channel(self.bias)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self._update_running(mean, var)
-        return F.batch_norm(
-            x, None, None, self.weight, self.bias, True, 0.0, self.eps
-        )
+            mean, var = all_reduce_moments(stats_copy, self.axis.group)
+        else:
+            var, mean = torch.var_mean(stats_copy, dim=(0, 2, 3), correction=0)
+        self._update_running(mean.detach(), var.detach())
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.to(dt) - _channel(mean)) * _channel(scale) + _channel(self.bias)
+        return y.to(x.dtype)
 
 
 def group_span(group_size: int, local_batch: int, world: int) -> int:
@@ -148,6 +168,9 @@ class GroupedBatchNorm(BatchNorm):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if not train:
             return super().forward(x, False)
+        return self._normalize_groups(x.to(stats_dtype(x.dtype))).to(x.dtype)
+
+    def _normalize_groups(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         gs = self.group_size
         span = group_span(gs, b, self.world)

@@ -11,6 +11,13 @@ The public input is NHWC, as in the JAX package; inside, the batch is viewed
 as NCHW with ``permute`` (no copy: the view has channels-last strides, which
 cuDNN takes as they are).  ``forward`` takes ``train`` explicitly instead of
 reading ``self.training``, mirroring ``model.apply(..., train=...)``.
+
+A precision policy (``ops/precision.py``) sets two dtypes, cast at the JAX
+package's cast points: the input is cast to ``act_dtype``; each convolution
+runs on ``compute_dtype`` operands (its f32 weight cast at the call) and
+its output is cast to ``act_dtype`` before BatchNorm; BatchNorm, ReLU, the
+residual add and the pooling run in ``act_dtype`` (BatchNorm's statistics in
+f32); the pooled feature is f32.
 """
 
 from __future__ import annotations
@@ -22,12 +29,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.precision import PRESETS, Policy
 from ..parallel.mesh import DataAxis
-from .norm import BatchNorm, make_norm
+from .norm import BatchNorm, make_norm, stats_dtype
 
 
-def _conv3x3(cin: int, cout: int, stride: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
+class Conv2d(nn.Conv2d):
+    """3x3 convolution, padding 1, no bias, whose operands are cast to
+    ``compute_dtype`` at the call (flax ``nn.Conv(dtype=...)``); the
+    parameter stays f32 and the output is in ``compute_dtype``."""
+
+    def __init__(self, cin: int, cout: int, stride: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, 3, stride=stride, padding=1, bias=False)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return self._conv_forward(x.to(cd), self.weight.to(cd), None)
 
 
 class DownsampleA(nn.Module):
@@ -42,17 +61,19 @@ class BasicBlock(nn.Module):
     """conv3x3-BN-ReLU-conv3x3-BN + shortcut, ReLU after the add."""
 
     def __init__(self, cin: int, planes: int, stride: int = 1, downsample: bool = False,
-                 bn_group_size: int = 0, axis: Optional[DataAxis] = None):
+                 bn_group_size: int = 0, axis: Optional[DataAxis] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv_a = _conv3x3(cin, planes, stride)
+        self.conv_a = Conv2d(cin, planes, stride, compute_dtype)
         self.bn_a = make_norm(planes, bn_group_size, axis)
-        self.conv_b = _conv3x3(planes, planes, 1)
+        self.conv_b = Conv2d(planes, planes, 1, compute_dtype)
         self.bn_b = make_norm(planes, bn_group_size, axis)
         self.shortcut = DownsampleA() if downsample else None
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        y = F.relu(self.bn_a(self.conv_a(x), train))
-        y = self.bn_b(self.conv_b(y), train)
+        act = x.dtype
+        y = F.relu(self.bn_a(self.conv_a(x).to(act), train))
+        y = self.bn_b(self.conv_b(y).to(act), train)
         residual = self.shortcut(x) if self.shortcut is not None else x
         return F.relu(residual + y)
 
@@ -64,14 +85,16 @@ class CifarResNet(nn.Module):
 
     def __init__(self, depth: int = 32, channels: int = 3,
                  generator: Optional[torch.Generator] = None,
-                 bn_group_size: int = 0, axis: Optional[DataAxis] = None):
+                 bn_group_size: int = 0, axis: Optional[DataAxis] = None,
+                 policy: Policy = PRESETS["f32"]):
         super().__init__()
         if (depth - 2) % 6 != 0:
             raise ValueError("depth should be one of 20, 32, 44, 56, 110")
         self.depth = depth
         self.channels = channels
+        self.act_dtype = policy.act_dtype
         n = (depth - 2) // 6
-        self.conv_1_3x3 = _conv3x3(channels, 16, 1)
+        self.conv_1_3x3 = Conv2d(channels, 16, 1, policy.compute_dtype)
         self.bn_1 = make_norm(16, bn_group_size, axis)
         self._block_names = []
         cin = 16
@@ -81,7 +104,7 @@ class CifarResNet(nn.Module):
                 name = f"stage_{stage}_block_{i}"
                 self.add_module(name, BasicBlock(
                     cin, planes, stride if first else 1, first and stage > 1,
-                    bn_group_size, axis,
+                    bn_group_size, axis, policy.compute_dtype,
                 ))
                 self._block_names.append(name)
                 cin = planes
@@ -92,7 +115,7 @@ class CifarResNet(nn.Module):
         """He init over fan-out, ``N(0, sqrt(2 / (kh·kw·out)))`` untruncated,
         BN at scale 1 / bias 0 / mean 0 / var 1."""
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, Conv2d):
                 kh, kw = m.kernel_size
                 std = math.sqrt(2.0 / (kh * kw * m.out_channels))
                 m.weight.normal_(0.0, std, generator=generator)
@@ -102,25 +125,39 @@ class CifarResNet(nn.Module):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def stem(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """NHWC images -> the first block's NCHW input, in ``act_dtype``."""
         if x.dim() != 4 or x.shape[-1] != self.channels:
             raise ValueError(
                 f"expected {self.channels}-channel NHWC input, got {tuple(x.shape)}"
             )
-        x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.bn_1(self.conv_1_3x3(x), train))
-        for name in self._block_names:
-            x = getattr(self, name)(x, train)
-        return x.mean(dim=(2, 3))
+        x = x.permute(0, 3, 1, 2).to(self.act_dtype)
+        return F.relu(self.bn_1(self.conv_1_3x3(x).to(self.act_dtype), train))
+
+    def blocks(self):
+        return [getattr(self, name) for name in self._block_names]
+
+    @staticmethod
+    def pool(x: torch.Tensor) -> torch.Tensor:
+        """Global average pool (in ``act_dtype``) to the ``[B, 64]`` feature,
+        f32 (or wider, for a float64 reference model)."""
+        return x.mean(dim=(2, 3)).to(stats_dtype(x.dtype))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.stem(x, train)
+        for block in self.blocks():
+            x = block(x, train)
+        return self.pool(x)
 
 
 _DEPTHS = {"resnet20": 20, "resnet32": 32, "resnet44": 44, "resnet56": 56, "resnet110": 110}
 
 
 def get_backbone(name: str, generator: Optional[torch.Generator] = None,
-                 bn_group_size: int = 0, axis: Optional[DataAxis] = None) -> CifarResNet:
+                 bn_group_size: int = 0, axis: Optional[DataAxis] = None,
+                 policy: Policy = PRESETS["f32"]) -> CifarResNet:
     """Flag string -> backbone; ``bn_group_size``/``axis`` pick its BN
-    (``models/norm.py``)."""
+    (``models/norm.py``), ``policy`` its dtypes."""
     if name.endswith("mnist"):
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet: the 1-channel backbones arrive "
@@ -130,4 +167,4 @@ def get_backbone(name: str, generator: Optional[torch.Generator] = None,
         depth = _DEPTHS[name]
     except KeyError:
         raise NotImplementedError(f"Unknown backbone {name}") from None
-    return CifarResNet(depth, 3, generator, bn_group_size, axis)
+    return CifarResNet(depth, 3, generator, bn_group_size, axis, policy)

@@ -24,6 +24,11 @@ with ``scale = 1/(B·N)``, plus one scalar all-reduce.
 
 ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count kernel launches (never plain-version
 calls), so a run can show that its train steps went through the kernels.
+
+The kernels read f32 or bf16 logits and accumulate in f32 (the
+``LOSS_DTYPE`` contract of ``ops/precision.py``); the models hand them f32
+logits under every preset (``LOGITS_DTYPE``).  So the kernel is registered
+as valid under all three presets, as the JAX package registers its own.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from . import cuda_build
+from .precision import register_policy_kernel
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -252,3 +258,6 @@ def sharded_fused_masked_cross_entropy(
     return ShardedFusedMaskedCrossEntropy.apply(
         logits, labels, num_active, float(label_smoothing), group
     )
+
+
+register_policy_kernel("fused_masked_cross_entropy", "f32", "bf16_all", "bf16_selective")

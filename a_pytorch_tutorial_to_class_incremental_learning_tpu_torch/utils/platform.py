@@ -44,9 +44,11 @@ def resolve_device(platform: Optional[str] = None) -> torch.device:
 
 
 def use_full_f32() -> None:
-    """The f32 preset: cuDNN would run f32 convolutions in TF32 (about three
-    decimal digits) by default, so TF32 is turned off for convolutions and
-    matmuls alike.  Process-wide switches."""
+    """Full f32 wherever a preset computes in f32 (all of ``f32``, and
+    everything but the bf16 operands of the others): cuDNN would run f32
+    convolutions in TF32 (about three decimal digits) by default, so TF32
+    is turned off for convolutions and matmuls alike.  Process-wide
+    switches."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 

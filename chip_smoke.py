@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                  # every phase, on one card
     python3 chip_smoke.py launch2 <flags>  # the CLI at 2 data-parallel ranks
+    python3 chip_smoke.py race <log.jsonl> [--init_state <state.pt>] <flags>
+                                           # a race run, timed (optionally
+                                           # from given task-0 weights)
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -27,20 +30,43 @@ Phases, in order; any failure exits non-zero before the result lines:
    (2 for the CUDA design: a hard check), an empty kernel launched through
    the same C path (the floor), the plain versions, the PyTorch calls that
    compute the same functions, and the card's bound.
+   Then augmentation on the card: every RandAugment op (15) at magnitudes
+   {0, 4.5, 9, 10}, sign ±1, bilinear and bicubic, on a seeded uint8 batch
+   of 128 32x32 images, against the same port function on the CPU: within
+   1 LSB, bitwise for the integer ops (equalize, invert, posterize,
+   solarize, solarize-add) and the identity warp; colour jitter and random
+   erasing (pixel, rand, const) with fixed draws to rtol 1e-6 after
+   normalization.  ``train_augment`` at B=128 with the default policy and
+   with ``--aa none`` must make no host sync (``set_sync_debug_mode``) and
+   no host copy; its kernels a call (profiler), device ms, host µs and wall
+   ms are printed.
 3. The main path: the CLI's trainer on the race recipe at full width
    (``synthetic_hard128``, resnet32, 100-wide head, batch 128, B50-inc10, 6
-   tasks) cut to 2 epochs a task, with ``--use_pallas_loss``.  Every
-   parameter must live on the card, every loss be finite, each CUDA kernel
-   be launched once per train step and no Triton kernel at all, the records
-   come in the CLI's order, and the trained model's eval forward on the
-   card agree with the same model on the CPU.
+   tasks) with the parser's default augmentation (RandAugment
+   ``rand-m9-mstd0.5-inc1``) cut to 2 epochs a task, with
+   ``--use_pallas_loss``.  Every parameter must live on the card, every loss
+   be finite, each CUDA kernel be launched once per train step and no
+   Triton kernel at all, the records come in the CLI's order, and the
+   trained model's eval forward on the card agree with the same model on
+   the CPU.
+   Then the precision presets: for each of f32, bf16_all and
+   bf16_selective, 30 train steps at full width (resnet32, 100-wide head,
+   B=128, a teacher, RandAugment, the CUDA kernels): the median step ms,
+   finite losses, one forward and one backward launch a step, f32 logits,
+   parameters, momentum and BN statistics, conv outputs in the preset's
+   compute dtype and BatchNorm inputs in its activation dtype; then the main
+   path again under ``--precision bf16_selective``, 1 epoch a task.
 4. Data parallel: two ranks started with ``torch.multiprocessing``, on
    ``nccl`` with a card each where there are two cards, else on ``gloo``
    with both ranks on the one card (NCCL refuses two ranks on one device).
    (a) Step parity: resnet32, 100-wide head, 2 x 64 rows (global 128), 3
-   steps of task 0 then 3 of task 1 with a teacher, through the sharded
-   fused loss; each step is held against the 1-rank step on the 128-row
-   batch from the same weights (loss rtol 1e-4; parameters and buffers
+   steps of task 0 then 3 of task 1 with a teacher, each rank augmenting its
+   stripe of the uint8 batch with RandAugment inside the step (the draws
+   are the global batch's: a stripe's augmentation must equal the rows of
+   the one-process augmentation bit for bit), through the sharded fused
+   loss; each step is held against the 1-rank step on the 128-row batch,
+   augmented with the same seed, from the same weights (loss rtol 1e-4;
+   parameters and buffers
    rtol 1e-3 / atol 1e-4, since cuDNN's backward is not deterministic;
    the momentum, the raw gradient, is reported against a float64 step),
    the ranks must end bitwise equal, and each rank must
@@ -52,8 +78,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    tasks, through the CLI's trainer: the record sequence, finite losses,
    γ > 0 after task 0, kernel launches per rank equal to the train steps,
    and the same memory on both ranks.
-5. A ``{"ce_round": ...}`` line, a ``{"kernels": [...]}`` line, then the
-   card line ``{"ok": true, "device": {...}}`` last.
+5. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
+   line, the card's name and power limit, a ``{"kernels": [...]}`` line,
+   then the card line ``{"ok": true, "device": {...}}`` last.
 
 Times: ``ms`` is the device-side spacing between back-to-back calls queued
 behind a sleep kernel, each bracketed by CUDA events (the event records
@@ -96,9 +123,18 @@ DP_STRIPE = (64, 100, 50)  # one rank's (B, W, active) in the data-parallel step
 DP_STEPS = 6               # 3 of task 0, then 3 of task 1 with a teacher
 DP_HP = dict(lr=0.1, lambda_kd=0.5, label_smoothing=0.0, kd_temperature=2.0,
              momentum=0.9, weight_decay=5e-4)
+# The race recipe with the parser's default augmentation (RandAugment
+# rand-m9-mstd0.5-inc1, bilinear) through the CUDA kernels.
 RACE_ARGV = ["--data_set", "synthetic_hard128", "--backbone", "resnet32",
              "--num_bases", "50", "--increment", "10", "--memory_size", "256",
-             "--aa", "none", "--color_jitter", "0", "--use_pallas_loss"]
+             "--use_pallas_loss"]
+AUG_SEED = 100             # parity step i augments with a generator seeded AUG_SEED + i
+AUG_B = 128                # the augment phase's batch (the train step's)
+INTEGER_OPS = (1, 2, 4, 5, 6)  # Equalize, Invert, Posterize, Solarize, SolarizeAdd
+PRECISION_STEPS = 30
+
+
+CARD = ""  # the card's name and power limit (nvidia-smi), printed beside every time
 
 
 class SmokeFailure(RuntimeError):
@@ -478,7 +514,7 @@ def phase_timing(torch):
     floor = {"ms": _device_ms(torch, empty), "host_us": _host_us(torch, empty),
              "device_ms": _profiled_ms(torch, empty, "fused_ce_empty_sm90")}
     print(f"[timing] floor (empty kernel through the C path): ms={floor['ms']:.5f} "
-          f"device_ms={floor['device_ms']} host_us={floor['host_us']:.2f}")
+          f"device_ms={floor['device_ms']} host_us={floor['host_us']:.2f} [{CARD}]")
 
     def plain_round():
         _, plse, _ = fl.fused_ce_fwd_plain(x, y, na, 0.0, scale)
@@ -526,7 +562,7 @@ def phase_timing(torch):
               f"device_ms={tr['device_ms']} host_us={tr['host_us']:.2f} | "
               f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
               f"library_host_us={t['library_host_us']:.2f} "
-              f"bound_ms={t['bound_ms']:.7f} ({t['bound_by']})")
+              f"bound_ms={t['bound_ms']:.7f} ({t['bound_by']}) [{CARD}]")
     return out
 
 
@@ -546,11 +582,10 @@ def phase_main_path(torch):
     with tempfile.TemporaryDirectory() as tmp:
         log = os.path.join(tmp, "smoke.jsonl")
         trainer = build_trainer([
-            "--data_set", "synthetic_hard128", "--backbone", "resnet32",
-            "--num_bases", "50", "--increment", "10", "--batch_size", "128",
-            "--memory_size", "256", "--aa", "none", "--color_jitter", "0",
-            "--num_epochs", str(epochs), "--use_pallas_loss", "--log_file", log,
+            *RACE_ARGV, "--batch_size", "128", "--num_epochs", str(epochs), "--log_file", log,
         ])
+        check(trainer.aug_cfg.rand_augment and trainer.aug_cfg.ra_num_ops == 2,
+              f"the main path does not run the parser's RandAugment: {trainer.aug_cfg}")
         model = trainer.state.model
         check(model.fc.weight.shape == (100, 64), "the head is not 100 wide")
         off = [n for n, p in model.named_parameters() if p.device.type != "cuda"]
@@ -605,11 +640,227 @@ def phase_main_path(torch):
         1e3 * (r["host_s"] + r["device_s"]) / r["steps"] for r in epochs_rec
     )
     print(f"[main] {steps} train steps in {nb_tasks} tasks, {wall_s:.1f} s wall; "
-          f"median step {step_ms:.3f} ms; launches {launches}")
+          f"median step {step_ms:.3f} ms [{CARD}]; launches {launches}")
     launches["step_ms"] = step_ms
     print(f"[main] acc1 per task: {[round(a, 3) for a in result['acc1s']]}")
     print(f"[main] gammas: {[t['gamma'] for t in tasks]}")
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# Augmentation on the card
+# --------------------------------------------------------------------------- #
+
+
+def phase_augment(torch):
+    """RandAugment, colour jitter and erasing on the card against the same
+    port functions on the CPU; then ``train_augment``'s times at B=128."""
+    import numpy as np
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import augment as taug
+
+    rng = np.random.RandomState(7)
+    imgs_cpu = torch.from_numpy(rng.randint(0, 256, (AUG_B, 32, 32, 3)).astype(np.float32))
+    imgs = imgs_cpu.cuda()
+    worst, combos = {}, 0
+    for interp in ("bilinear", "bicubic"):
+        for op in range(taug.NUM_RA_OPS):
+            for mag in (0.0, 4.5, 9.0, 10.0):
+                for sign in (1.0, -1.0):
+                    args = [torch.full((AUG_B,), v) for v in (op, mag, sign)]
+                    ref = taug.ra_apply(imgs_cpu, *args, 32, interp)
+                    got = taug.ra_apply(imgs, *(a.cuda() for a in args), 32, interp).cpu()
+                    diff = (got - ref).abs().max().item()
+                    exact = op in INTEGER_OPS or (op in taug.GEOMETRIC_OPS and mag == 0.0)
+                    check(diff == 0.0 if exact else diff <= 1.0,
+                          f"{taug.RA_OPS[op]} m={mag} sign={sign} {interp}: card vs CPU "
+                          f"max |diff| {diff} (allowed {0 if exact else 1} LSB)")
+                    key = f"{taug.RA_OPS[op]}/{interp}"
+                    worst[key] = max(worst.get(key, 0.0), diff)
+                    combos += 1
+    print(f"[augment] {combos} RandAugment cases (15 ops x 4 magnitudes x 2 signs x 2 kernels, "
+          f"B={AUG_B}): card = CPU within 1 LSB, bitwise for the integer ops and the identity "
+          f"warp; cases off by 1 LSB: {sorted(k for k, v in worst.items() if v > 0)}")
+
+    u8 = torch.from_numpy(rng.randint(0, 256, (AUG_B, 32, 32, 3)).astype(np.uint8))
+    pipelines = {
+        "color_jitter": dict(rand_augment=False, color_jitter=0.4),
+        "erasing_pixel": dict(rand_augment=False, color_jitter=0.0, reprob=0.5, recount=2),
+        "erasing_rand": dict(rand_augment=False, color_jitter=0.0, reprob=0.5, remode="rand"),
+        "erasing_const_randaugment": dict(reprob=0.5, remode="const",
+                                          ra_interpolation="random"),
+    }
+    for name, recipe in pipelines.items():
+        cfg = taug.AugmentConfig(**recipe)
+        draws = taug.draw_params(AUG_B, cfg, torch.Generator().manual_seed(4), (32, 32, 3))
+        ref = taug.augment(u8, draws, cfg)
+        on_card = taug.Draws(**{k: None if v is None else v.cuda()
+                                for k, v in vars(draws).items()})
+        got = taug.augment(u8.cuda(), on_card, cfg).cpu()
+        levels = (got - ref).mul(torch.tensor(cfg.std) * 255).abs()
+        same = levels < 1e-3
+        check(levels.max().item() <= 1.0 + 1e-3 and same.float().mean().item() > 0.99
+              and torch.allclose(got[same], ref[same], rtol=1e-6, atol=1e-6),
+              f"{name}: card vs CPU after normalization differ by "
+              f"{(got - ref).abs().max().item()} (levels {levels.max().item()})")
+    print(f"[augment] {', '.join(pipelines)} with fixed draws: card = CPU to rtol 1e-6 "
+          "after normalization")
+
+    batch = torch.randint(0, 256, (AUG_B, 32, 32, 3), dtype=torch.uint8, device="cuda")
+    out = {"combos": combos, "off_by_one": sorted(k for k, v in worst.items() if v > 0)}
+    for name, cfg in (("randaugment", taug.AugmentConfig()),
+                      ("aa_none", taug.AugmentConfig(rand_augment=False, color_jitter=0.4))):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def call():
+            return taug.train_augment(batch, cfg, gen)
+
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # any host sync in the call raises
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        prof = _launches_per_call(_profile(torch, call, 20), 20)
+        check(not any(k.startswith("Memcpy") for k in prof["copies"]),
+              f"train_augment ({name}) copies between host and card: {prof['copies']}")
+        t = {"kernels_per_call": prof["launches"], "device_ms": prof["device_ms"],
+             "host_us": _host_us(torch, call, n=2, reps=20),
+             "wall_ms": _host_ms(torch, call, n=20)}
+        out[name] = t
+        print(f"[augment] train_augment B={AUG_B} {name}: {t['kernels_per_call']:g} kernels a "
+              f"call, device {t['device_ms']:.4f} ms (profiler sum), host {t['host_us']:.1f} us "
+              f"to enqueue, {t['wall_ms']:.3f} ms synchronized wall; no host sync "
+              f"[{CARD}]")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Precision presets
+# --------------------------------------------------------------------------- #
+
+
+def phase_precision(torch):
+    """Each preset at full width (resnet32, 100-wide head, B=128, a teacher,
+    RandAugment, the CUDA kernels): ~30 steps, their median time, finite
+    losses, 2 kernel launches a step, the dtype contract; then a short
+    ``--precision bf16_selective`` run of the main path."""
+    import numpy as np
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import (
+        build_raw_dataset,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.augment import (
+        AugmentConfig, eval_preprocess,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine import train as tt
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import (
+        BatchNorm, create_model, grow,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models.resnet import Conv2d
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops.precision import PRESETS
+
+    (x, y), _ = build_raw_dataset("synthetic_hard128", "", True)
+    idx = np.random.RandomState(0).choice(np.flatnonzero(y < 60), (PRECISION_STEPS, 128))
+    xs, ys = torch.from_numpy(x[idx]).cuda(), torch.from_numpy(y[idx]).cuda()
+    out = {}
+    for preset, policy in PRESETS.items():
+        model = create_model("resnet32", 100, seed=3, policy=policy).cuda()
+        grow(model, torch.Generator().manual_seed(1), 0, 50)
+        teacher = tt.Teacher(copy.deepcopy(model).requires_grad_(False), _count(torch, 50))
+        grow(model, torch.Generator().manual_seed(2), 50, 10)
+        state = tt.TrainState(model, tt.sgd_init(model.parameters()), _count(torch, 60),
+                              _count(torch, 50))
+        step = tt.make_train_step(AugmentConfig(), policy, 0.0, 2.0, 0.9, 5e-4,
+                                  use_pallas_loss=True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = 0
+        times, losses = [], []
+        for i in range(PRECISION_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, teacher, xs[i], ys[i], gen, 0.1, 0.5)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(m["loss"])
+        losses = torch.stack(losses).cpu()
+        launches = (fl.FWD_LAUNCHES, fl.BWD_LAUNCHES)
+        check(bool(torch.isfinite(losses).all()), f"{preset}: non-finite loss {losses}")
+        check(launches == (PRECISION_STEPS, PRECISION_STEPS),
+              f"{preset}: fused-CE launches {launches} for {PRECISION_STEPS} steps "
+              "(want a forward and a backward a step)")
+        # The dtype contract, on one more (untimed) step with hooks.
+        seen = {"conv": set(), "bn_in": set()}
+
+        def record(key, get):
+            def hook(_module, inputs, output):
+                seen[key].add(get(inputs, output).dtype)
+            return hook
+
+        handles = []
+        for mod in model.modules():
+            if isinstance(mod, Conv2d):
+                handles.append(mod.register_forward_hook(record("conv", lambda i, o: o)))
+            elif isinstance(mod, BatchNorm):
+                handles.append(mod.register_forward_hook(record("bn_in", lambda i, o: i[0])))
+        step(state, teacher, xs[0], ys[0], gen, 0.1, 0.5)
+        with torch.no_grad():
+            logits, feats = model(eval_preprocess(xs[0], AugmentConfig()), state.num_active)
+        for h in handles:
+            h.remove()
+        check(logits.dtype == torch.float32 and feats.dtype == torch.float32,
+              f"{preset}: logits {logits.dtype}, features {feats.dtype}")
+        off = [n for n, t in [*model.named_parameters(), *model.named_buffers()]
+               if t.dtype != torch.float32]
+        off += [f"momentum[{i}]" for i, t in enumerate(state.momentum) if t.dtype != torch.float32]
+        check(not off, f"{preset}: state off f32: {off[:5]}")
+        check(seen["conv"] == {policy.compute_dtype},
+              f"{preset}: conv outputs {seen['conv']}, want {policy.compute_dtype}")
+        check(seen["bn_in"] == {policy.act_dtype},
+              f"{preset}: BatchNorm inputs {seen['bn_in']}, want {policy.act_dtype}")
+        step_ms = statistics.median(times[5:])
+        out[preset] = {"step_ms": step_ms, "steps": PRECISION_STEPS, "launches": list(launches),
+                       "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+                       "conv_out": str(seen["conv"].pop()).removeprefix("torch."),
+                       "bn_in": str(seen["bn_in"].pop()).removeprefix("torch.")}
+        print(f"[precision] {preset}: median step {step_ms:.3f} ms over {PRECISION_STEPS - 5} "
+              f"steps (B=128, resnet32, teacher, RandAugment, CUDA kernels) [{CARD}]; loss "
+              f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}; launches {launches}; conv "
+              f"out {out[preset]['conv_out']}, BN in {out[preset]['bn_in']}; logits, params, "
+              "momentum and BN stats f32")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "bf16.jsonl")
+        trainer = build_trainer([*RACE_ARGV, "--batch_size", "128", "--num_epochs", "1",
+                                 "--precision", "bf16_selective", "--log_file", log])
+        fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        records = [json.loads(ln) for ln in open(log)]
+    steps = trainer.global_step
+    types = [r["type"] for r in records]
+    check(types == ["run"] + ["epoch", "task", "cil_metrics"] * 6 + ["final"],
+          f"bf16_selective run: record sequence {types}")
+    check(records[0]["precision"] == "bf16_selective", f"run record {records[0]}")
+    check(steps > 0 and fl.FWD_LAUNCHES == fl.BWD_LAUNCHES == steps,
+          f"bf16_selective run: launches {fl.FWD_LAUNCHES}/{fl.BWD_LAUNCHES} != {steps} steps")
+    epochs = [r for r in records if r["type"] == "epoch"]
+    check(all(math.isfinite(r[k]) for r in epochs for k in ("loss", "ce", "kd")),
+          "bf16_selective run: non-finite metrics")
+    step_ms = statistics.median(1e3 * (r["host_s"] + r["device_s"]) / r["steps"] for r in epochs)
+    out["main_bf16_selective"] = {"steps": steps, "wall_s": wall_s, "step_ms": step_ms,
+                                  "acc1s": result["acc1s"]}
+    print(f"[precision] main path --precision bf16_selective, 1 epoch a task: {steps} steps, "
+          f"{wall_s:.1f} s, median step {step_ms:.3f} ms [{CARD}]; acc1 per task "
+          f"{[round(a, 3) for a in result['acc1s']]}")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -639,45 +890,61 @@ def _snapshot(state):
 
 
 def _step_batches(torch):
-    """The parity steps' global batches of 128 rows, the same in every
-    process: ``synthetic_hard128`` images, normalized, labels among the 50
-    classes of task 0 for the first 3 steps, then among 60.  Real images,
-    not noise: on noise the first conv's weight gradient is a sum of
-    terms with random signs, which a coherent 1e-6 change in a BN
-    statistic moves by ~1e-3 of its size."""
+    """The parity steps' global uint8 batches of 128 rows, the same in every
+    process: ``synthetic_hard128`` images, labels among the 50 classes of
+    task 0 for the first 3 steps, then among 60.  Real images, not noise:
+    on noise the first conv's weight gradient is a sum of terms with random
+    signs, which a coherent 1e-6 change in a BN statistic moves by ~1e-3 of
+    its size."""
     import numpy as np
 
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import (
         build_raw_dataset,
-    )
-    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.augment import (
-        AugmentConfig, eval_preprocess,
     )
 
     (x, y), _ = build_raw_dataset("synthetic_hard128", "", True)
     rows = DP_STRIPE[0] * DP_RANKS
     half = DP_STEPS // 2 * rows
     idx = np.concatenate([np.flatnonzero(y < 50)[:half], np.flatnonzero(y < 60)[-half:]])
-    xs = eval_preprocess(torch.from_numpy(x[idx]).cuda(), AugmentConfig())
+    xs = torch.from_numpy(x[idx]).cuda()
     ys = torch.from_numpy(y[idx]).cuda()
     return xs.reshape(DP_STEPS, rows, *xs.shape[1:]), ys.reshape(DP_STEPS, rows)
 
 
-def _parity_model(torch, axis=None):
-    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import create_model
+def _aug_generator(torch, i):
+    """Step ``i``'s augmentation generator, seeded alike in every process."""
+    return torch.Generator(device="cuda").manual_seed(AUG_SEED + i)
 
-    return create_model("resnet32", 100, seed=5, axis=axis).cuda()
+
+def _parity_model(torch, axis=None, dtype=None):
+    """The parity model; ``dtype`` float64 gives the float64 reference (a
+    policy that computes in float64 throughout)."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import create_model
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops.precision import (
+        PRESETS, Policy,
+    )
+
+    policy = (PRESETS["f32"] if dtype in (None, torch.float32)
+              else Policy("f64", torch.float64, torch.float64, torch.float64))
+    return create_model("resnet32", 100, seed=5, axis=axis, policy=policy).cuda().to(
+        dtype or torch.float32)
 
 
 def _job_step(torch, rank, out_dir, argv):
-    """Six train steps at 2 ranks x 64 rows through the sharded fused loss,
-    with rank 0's state before and after each step; then the sharded loss
-    on one stripe against its plain version, and its times."""
+    """Six train steps at 2 ranks x 64 rows, each augmenting its stripe of
+    the uint8 global batch with RandAugment inside the step, through the
+    sharded fused loss, with rank 0's state before and after each step;
+    then the sharded loss on one stripe against its plain version, and its
+    times."""
     import torch.distributed as dist
 
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.augment import (
+        AugmentConfig, train_augment,
+    )
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine import train as tt
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import grow
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops.precision import PRESETS
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.parallel import (
         broadcast_module, data_axis,
     )
@@ -688,6 +955,15 @@ def _job_step(torch, rank, out_dir, argv):
     xs, ys = _step_batches(torch)
     b = DP_STRIPE[0]
     rows = slice(rank * b, (rank + 1) * b)
+    cfg = AugmentConfig()
+    # The stripe's draws are the global batch's: this rank's rows of the
+    # one-process augmentation, bit for bit.
+    check(torch.equal(train_augment(xs[0][rows], cfg, _aug_generator(torch, 0), rank, DP_RANKS),
+                      train_augment(xs[0], cfg, _aug_generator(torch, 0))[rows]),
+          f"rank {rank}: the stripe's augmentation is not the global batch's rows")
+    step = tt.make_train_step(cfg, PRESETS["f32"], DP_HP["label_smoothing"],
+                              DP_HP["kd_temperature"], DP_HP["momentum"], DP_HP["weight_decay"],
+                              use_pallas_loss=True, axis=axis)
     state = tt.TrainState(model, tt.sgd_init(model.parameters()), _count(torch, 50),
                           _count(torch, 0))
     teacher = None
@@ -701,12 +977,8 @@ def _job_step(torch, rank, out_dir, argv):
             state.num_active, state.known = _count(torch, 60), _count(torch, 50)
         if rank == 0:
             out["before"].append(_snapshot(state))
-        m = tt.train_step_on_batch(
-            state, teacher, xs[i][rows], ys[i][rows], DP_HP["lr"], DP_HP["lambda_kd"],
-            label_smoothing=DP_HP["label_smoothing"], kd_temperature=DP_HP["kd_temperature"],
-            momentum=DP_HP["momentum"], weight_decay=DP_HP["weight_decay"],
-            use_pallas_loss=True, group=axis.group,
-        )
+        m = step(state, teacher, xs[i][rows], ys[i][rows], _aug_generator(torch, i),
+                 DP_HP["lr"], DP_HP["lambda_kd"])
         out["loss"].append(float(m["loss"]))
         if rank == 0:
             out["after"].append(_snapshot(state))
@@ -855,23 +1127,28 @@ def launch_ranks(torch, jobs, out_dir, argv=()) -> str:
 
 
 def _step_at(torch, batches, snap, teacher_sd, i, dtype, use_pallas_loss):
-    """One 1-rank step on the 128-row batch ``i`` from the state ``snap``
-    (in ``dtype``); returns the loss and the new state."""
+    """One 1-rank step on the 128-row batch ``i``, augmented in one process
+    with step ``i``'s generator, from the state ``snap`` (in ``dtype``);
+    returns the loss and the new state."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.augment import (
+        AugmentConfig, train_augment,
+    )
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine import train as tt
 
     xs, ys = batches
+    x = train_augment(xs[i], AugmentConfig(), _aug_generator(torch, i))
     task1 = i >= DP_STEPS // 2
-    model = _parity_model(torch).to(dtype)
+    model = _parity_model(torch, dtype=dtype)
     model.load_state_dict(snap["model"])
-    state = tt.TrainState(model, [m.cuda().to(dtype) for m in snap["momentum"]],
+    state = tt.TrainState(model, [m.to("cuda", dtype, copy=True) for m in snap["momentum"]],
                           _count(torch, 60 if task1 else 50), _count(torch, 50 if task1 else 0))
     teacher = None
     if task1:
-        t_model = _parity_model(torch).to(dtype)
+        t_model = _parity_model(torch, dtype=dtype)
         t_model.load_state_dict(teacher_sd)
         teacher = tt.Teacher(t_model.requires_grad_(False), _count(torch, 50))
     m = tt.train_step_on_batch(
-        state, teacher, xs[i].to(dtype), ys[i], DP_HP["lr"], DP_HP["lambda_kd"],
+        state, teacher, x.to(dtype), ys[i], DP_HP["lr"], DP_HP["lambda_kd"],
         label_smoothing=DP_HP["label_smoothing"], kd_temperature=DP_HP["kd_temperature"],
         momentum=DP_HP["momentum"], weight_decay=DP_HP["weight_decay"],
         use_pallas_loss=use_pallas_loss,
@@ -953,7 +1230,7 @@ def phase_data_parallel(torch):
           f"ms={sharded['ms']:.5f} kernel_ms={sharded['kernel_ms']:.5f} "
           f"device_ms={sharded['device_ms']} allreduce_ms={sharded['allreduce_ms']:.5f} "
           f"plain_ms={sharded['plain_ms']:.5f} library_ms={sharded['library_ms']:.5f} "
-          f"bound_ms={sharded['bound_ms']:.6f} ({sharded['bound_by']})")
+          f"bound_ms={sharded['bound_ms']:.6f} ({sharded['bound_by']}) [{CARD}]")
     rnd = sharded["round"]
     print(f"[timing] sharded CE round ({backend}): {rnd['launches']:g} kernel launches "
           f"{rnd['kernels']}; collective {rnd['collective']}; copies {rnd['copies']}")
@@ -985,7 +1262,7 @@ def phase_data_parallel(torch):
     step_ms = statistics.median(1e3 * (x["host_s"] + x["device_s"]) / x["steps"] for x in epochs)
     print(f"[dp] protocol: {proto[0]['steps']} train steps a rank in {nb_tasks} tasks on "
           f"{proto[0]['device']} / {proto[1]['device']}, fit {proto[0]['wall_s']:.1f} s, "
-          f"phase {wall_s:.1f} s; median step {step_ms:.3f} ms; launches "
+          f"phase {wall_s:.1f} s; median step {step_ms:.3f} ms [{CARD}]; launches "
           f"{proto[0]['launches']} / {proto[1]['launches']}; memories equal")
     print(f"[dp] acc1 per task: {[round(a, 3) for a in proto[0]['acc1s']]}; gammas {gammas}")
     return {"backend": backend, "sharded": sharded, "launches": proto[0]["launches"][0],
@@ -1008,19 +1285,76 @@ def launch_cli(argv) -> int:
     return 0
 
 
+def race(log: str, argv) -> int:
+    """``race``: the race recipe (RandAugment, the CUDA kernels, batch 128)
+    with the caller's flags, logged to ``log``; prints the card, the wall
+    time, the median train step and the average incremental top-1.  With
+    ``--init_state <state.pt>`` the model takes that state dict right after
+    task 0's head grows (e.g. the JAX package's initial weights for a seed,
+    written by ``tests/test_torch_race_init.py save``)."""
+    import torch
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+
+    argv = list(argv)
+    init_state = None
+    if "--init_state" in argv:
+        i = argv.index("--init_state")
+        init_state = argv[i + 1]
+        del argv[i:i + 2]
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    trainer = build_trainer([*RACE_ARGV, "--batch_size", "128", "--log_file", log, *argv])
+    if init_state is not None:
+        grow = trainer._grow_state
+
+        def grow_then_load(task_id, known, nb_new):
+            grow(task_id, known, nb_new)
+            if task_id == 0:
+                trainer.state.model.load_state_dict(torch.load(init_state))
+
+        trainer._grow_state = grow_then_load
+    result = trainer.fit()
+    wall_s = time.perf_counter() - t0
+    records = [json.loads(ln) for ln in open(log)]
+    epochs = [r for r in records if r["type"] == "epoch"]
+    summary = {
+        "log": log, "argv": argv, "init_state": init_state, "card": smi, "wall_s": wall_s,
+        "run_to_final_s": records[-1]["ts"] - records[0]["ts"],
+        "steps": sum(r["steps"] for r in epochs),
+        "median_step_ms": statistics.median(
+            1e3 * (r["host_s"] + r["device_s"]) / r["steps"] for r in epochs),
+        "avg_incremental_acc1": result["avg_incremental_acc1"], "acc1s": result["acc1s"],
+    }
+    print(json.dumps({"race": summary}))
+    return 0
+
+
 def main() -> int:
     import torch
 
     if len(sys.argv) > 1 and sys.argv[1] == "launch2":
         return launch_cli(sys.argv[2:])
+    if len(sys.argv) > 2 and sys.argv[1] == "race":
+        return race(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
+    global CARD
     try:
         smi, ptxas = phase_environment(torch)
+        CARD = smi
         err = phase_kernels(torch)
         timing = phase_timing(torch)
+        augment = phase_augment(torch)
         launches = phase_main_path(torch)
+        precision = phase_precision(torch)
         dp = phase_data_parallel(torch)
     except (SmokeFailure, ImportError) as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
@@ -1075,6 +1409,8 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "floor": r["floor"],
         "main_path_step_ms": launches["step_ms"],
     }}))
+    print(json.dumps({"augment": augment, "precision": precision,
+                      "main_path_step_ms": launches["step_ms"], "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

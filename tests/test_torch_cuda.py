@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the CUDA C++ kernels against
-their plain versions, the forward's in-kernel batch reduction, and a train
-step through the kernels against the same step through the plain loss.
-They skip without a card.  This file imports no JAX, so it also runs where
+their plain versions, the forward's in-kernel batch reduction, a train
+step through the kernels against the same step through the plain loss, the
+augmentation on the card against the same functions on the CPU, and one
+step under each precision preset.  They skip without a card.  This file imports no JAX, so it also runs where
 JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -11,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import augment as taug
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine import train as tt
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import NEG_INF, CilModel
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models.resnet import Conv2d
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops.precision import PRESETS
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.platform import (
     use_full_f32,
 )
@@ -99,3 +103,87 @@ def test_train_step_through_kernels_matches_plain_loss(cuda):
     assert np.isclose(results[0][0], results[1][0], rtol=1e-5)
     for k, v in results[0][1].items():
         torch.testing.assert_close(results[1][1][k], v, rtol=1e-4, atol=1e-6)
+
+
+INTEGER_OPS = (1, 2, 4, 5, 6)  # Equalize, Invert, Posterize, Solarize, SolarizeAdd
+
+
+@pytest.mark.parametrize("interpolation", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("op", range(taug.NUM_RA_OPS), ids=lambda i: taug.RA_OPS[i])
+def test_ra_op_on_the_card_matches_the_cpu(cuda, op, interpolation):
+    """Each op at magnitudes {0, 4.5, 9, 10} x sign ±1 on 128 seeded images:
+    within 1 LSB of the CPU, bitwise for the integer ops and the identity
+    warp (magnitude 0 of a geometric op)."""
+    imgs = torch.from_numpy(np.random.RandomState(op).randint(0, 256, (128, 32, 32, 3))
+                            .astype(np.float32))
+    for mag in (0.0, 4.5, 9.0, 10.0):
+        for sign in (1.0, -1.0):
+            args = (torch.full((128,), op), torch.full((128,), mag), torch.full((128,), sign))
+            ref = taug.ra_apply(imgs, *args, 32, interpolation)
+            got = taug.ra_apply(imgs.to(cuda), *(a.to(cuda) for a in args), 32,
+                                interpolation).cpu()
+            if op in INTEGER_OPS or (op in taug.GEOMETRIC_OPS and mag == 0.0):
+                assert torch.equal(got, ref), (op, mag, sign)
+            else:
+                assert (got - ref).abs().max() <= 1.0, (op, mag, sign)
+
+
+@pytest.mark.parametrize("recipe", [
+    dict(rand_augment=False, color_jitter=0.4),
+    dict(rand_augment=False, color_jitter=0.0, reprob=0.5, remode="pixel", recount=2),
+    dict(rand_augment=False, color_jitter=0.0, reprob=0.5, remode="rand"),
+    dict(reprob=0.5, remode="const", ra_interpolation="random"),
+])
+def test_pipeline_on_the_card_matches_the_cpu(cuda, recipe):
+    """Colour jitter, erasing and RandAugment with draws fixed on the CPU:
+    the card's normalized output equals the CPU's to rtol 1e-6 where the
+    uint8 levels agree, and the levels to 1 LSB."""
+    cfg = taug.AugmentConfig(**recipe)
+    u8 = torch.from_numpy(np.random.RandomState(3).randint(0, 256, (128, 32, 32, 3))
+                          .astype(np.uint8))
+    draws = taug.draw_params(128, cfg, torch.Generator().manual_seed(4), (32, 32, 3))
+    ref = taug.augment(u8, draws, cfg)
+    on_card = taug.Draws(**{k: None if v is None else v.to(cuda)
+                            for k, v in vars(draws).items()})
+    got = taug.augment(u8.to(cuda), on_card, cfg).cpu()
+    std = torch.tensor(cfg.std) * 255
+    levels = (got - ref).mul(std).abs()
+    assert levels.max() <= 1.0 + 1e-3
+    same = levels < 1e-3
+    assert same.float().mean() > 0.99
+    torch.testing.assert_close(got[same], ref[same], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("preset", list(PRESETS))
+def test_step_under_each_preset_through_the_kernels(cuda, preset):
+    """One RandAugment train step through the CUDA kernels under each
+    preset: finite loss, one launch of each kernel, f32 logits, parameters,
+    momentum and BN statistics, conv outputs in the compute dtype."""
+    policy = PRESETS[preset]
+    torch.manual_seed(0)
+    model = CilModel("resnet20", 10, policy=policy).to(cuda)
+    with torch.no_grad():
+        model.fc.weight[:6].uniform_(-0.1, 0.1)
+    conv_dtypes = set()
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            m.register_forward_hook(lambda _m, _i, out: conv_dtypes.add(out.dtype) and None)
+    state = tt.TrainState(model, tt.sgd_init(model.parameters()),
+                          torch.tensor([6], dtype=torch.int32, device=cuda),
+                          torch.tensor([0], dtype=torch.int32, device=cuda))
+    step = tt.make_train_step(taug.AugmentConfig(), policy, 0.0, 2.0, 0.9, 5e-4,
+                              use_pallas_loss=True)
+    x = torch.randint(0, 256, (16, 32, 32, 3), dtype=torch.uint8, device=cuda)
+    y = torch.randint(0, 6, (16,), device=cuda)
+    launches = (fused_loss.FWD_LAUNCHES, fused_loss.BWD_LAUNCHES)
+    m = step(state, None, x, y, torch.Generator(device=cuda).manual_seed(1), 0.1, 0.5)
+    torch.cuda.synchronize()
+    assert (fused_loss.FWD_LAUNCHES, fused_loss.BWD_LAUNCHES) == (launches[0] + 1,
+                                                                  launches[1] + 1)
+    assert np.isfinite(float(m["loss"]))
+    assert conv_dtypes == {policy.compute_dtype}
+    with torch.no_grad():
+        logits, _ = model(taug.eval_preprocess(x, taug.AugmentConfig()), state.num_active)
+    assert logits.dtype == torch.float32
+    assert all(t.dtype == torch.float32 for t in [*model.parameters(), *model.buffers(),
+                                                  *state.momentum])

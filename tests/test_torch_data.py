@@ -132,10 +132,11 @@ def test_normalize_and_eval_preprocess_match_jax():
 def test_train_augment_is_crop_flip_normalize_of_its_draws():
     """The batched pipeline equals the per-op composition of the offsets and
     bits its generator draws, and stays a zero-padded shifted copy."""
-    cfg = taug.AugmentConfig()
+    cfg = taug.AugmentConfig(rand_augment=False, color_jitter=0.0)
     u8 = torch.from_numpy(_images(b=16, seed=6).astype(np.uint8))
     out = taug.train_augment(u8, cfg, torch.Generator().manual_seed(9))
-    oy, ox, flip = taug.draw_params(16, cfg, torch.Generator().manual_seed(9))
+    d = taug.draw_params(16, cfg, torch.Generator().manual_seed(9), (32, 32, 3))
+    oy, ox, flip = d.oy, d.ox, d.flip
     ref = taug.normalize(taug.random_flip(taug.random_crop(u8.float(), oy, ox, 4), flip), cfg)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert 0 < int(flip.sum()) < 16 and int(oy.min()) >= 0 and int(oy.max()) <= 8

@@ -6,7 +6,13 @@ ranks x 4 rows against a test-local float64 JAX composition of
 ``sgd_update`` on the global batch of 8 (the one of
 ``tests/test_torch_train_step.py``), from identical weights on identical
 pre-augmented batches, with and without ``use_pallas_loss`` (the sharded
-fused loss) and with global BN and groups of 4.  Loss rtol 1e-4;
+fused loss) and with global BN and groups of 4; and once with RandAugment
+on (the parser's default policy): each rank augments its stripe of the uint8
+global batch inside the train step, drawing for the global batch, and the
+JAX step runs on the port's one-process augmentation of the whole batch
+with the same seed (``jax.random`` draws cannot be replayed in torch; the
+augmentation itself is held to JAX in ``tests/test_torch_augment.py``).
+Loss rtol 1e-4;
 parameters, momentum and BN stats rtol 1e-4 / atol 1e-5 (the tolerances of
 the single-process step test); the two ranks' states bitwise equal.  The
 CLI at two ranks is ``tests/test_torch_dp_cli.py``.
@@ -26,9 +32,14 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.jax_weight
     from_jax_variables,
 )
 from test_torch_dist import spawn_ranks
+import torch
+
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import augment as taug
 
 HP = dict(lr=0.05, momentum=0.9, weight_decay=5e-4, lam=0.5, temperature=2.0, smooth=0.1)
-CASES = [(pallas, g) for pallas in (False, True) for g in (0, 4)]
+# (use_pallas_loss, bn_group_size, RandAugment in the step)
+CASES = [(pallas, g, False) for pallas in (False, True) for g in (0, 4)] + [(True, 0, True)]
+AUG_SEED = 100  # step i augments with a generator seeded AUG_SEED + i
 
 
 def _setup(g):
@@ -45,6 +56,20 @@ def _setup(g):
     batches = [(rng.randn(8, 32, 32, 3).astype(np.float32),
                 rng.randint(0, 10, 8).astype(np.int64)) for _ in range(2)]
     return variables, teacher, momentum, batches
+
+
+def _u8_batches():
+    rng = np.random.RandomState(9)
+    return [rng.randint(0, 256, (8, 32, 32, 3)).astype(np.uint8) for _ in range(2)]
+
+
+def _augmented(batches):
+    """The two global batches as one process augments them (RandAugment,
+    the parser's default), the labels unchanged."""
+    cfg = taug.AugmentConfig()
+    return [(taug.train_augment(torch.from_numpy(u8), cfg,
+                                torch.Generator().manual_seed(AUG_SEED + i)).numpy(), y)
+            for i, (u8, (_, y)) in enumerate(zip(_u8_batches(), batches))]
 
 
 def _jax_two_steps(g, variables, teacher, momentum, batches):
@@ -97,8 +122,10 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.augment import AugmentConfig
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine import train as tt
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import CilModel
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops.precision import PRESETS
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.parallel import (
     data_axis, init_distributed_mode,
 )
@@ -108,7 +135,7 @@ init_distributed_mode(os.environ["DIST_URL"], "cpu")
 axis = data_axis((2, 1))
 count = lambda n: torch.tensor([n], dtype=torch.int32)
 out = {{}}
-for pallas, g in {cases}:
+for pallas, g, aug in {cases}:
     d = np.load(f"inputs_g{{g}}.npz")
     load = lambda prefix, model: model.load_state_dict(
         {{k[len(prefix):]: torch.from_numpy(d[k]) for k in d.files if k.startswith(prefix)}})
@@ -121,16 +148,23 @@ for pallas, g in {cases}:
                           count(10), count(5))
     rows = slice(axis.rank * 4, (axis.rank + 1) * 4)
     losses = []
+    step = tt.make_train_step(AugmentConfig(), PRESETS["f32"], HP["smooth"], HP["temperature"],
+                              HP["momentum"], HP["weight_decay"], use_pallas_loss=pallas,
+                              axis=axis)
     for i, t in enumerate((None, tt.Teacher(teacher, count(5)))):
-        x = torch.from_numpy(d[f"x{{i}}"][rows])
         y = torch.from_numpy(d[f"y{{i}}"][rows])
-        m = tt.train_step_on_batch(
-            state, t, x, y, HP["lr"], HP["lam"], label_smoothing=HP["smooth"],
-            kd_temperature=HP["temperature"], momentum=HP["momentum"],
-            weight_decay=HP["weight_decay"], use_pallas_loss=pallas, group=axis.group)
+        if aug:  # the stripe of the uint8 batch, augmented inside the step
+            m = step(state, t, torch.from_numpy(d[f"u{{i}}"][rows]), y,
+                     torch.Generator().manual_seed({aug_seed} + i), HP["lr"], HP["lam"])
+        else:
+            m = tt.train_step_on_batch(
+                state, t, torch.from_numpy(d[f"x{{i}}"][rows]), y, HP["lr"], HP["lam"],
+                label_smoothing=HP["smooth"], kd_temperature=HP["temperature"],
+                momentum=HP["momentum"], weight_decay=HP["weight_decay"],
+                use_pallas_loss=pallas, group=axis.group)
         losses.append(float(m["loss"]))
         assert (float(m["kd"]) > 0) == (t is not None)
-    case = f"p{{int(pallas)}}g{{g}}"
+    case = f"p{{int(pallas)}}g{{g}}a{{int(aug)}}"
     out[case + "/loss"] = np.array(losses)
     for k, v in student.state_dict().items():
         out[f"{{case}}/sd/{{k}}"] = v.numpy()
@@ -158,23 +192,28 @@ def two_ranks(tmp_path_factory, setups):
         mom = _port_state_dict(momentum, variables["batch_stats"])
         for n in names:
             arrays["momentum/" + n] = mom[n]
-        for i, (x, y) in enumerate(batches):
-            arrays[f"x{i}"], arrays[f"y{i}"] = x, y
+        for i, ((x, y), u8) in enumerate(zip(batches, _u8_batches())):
+            arrays[f"x{i}"], arrays[f"y{i}"], arrays[f"u{i}"] = x, y, u8
         np.savez(tmp / f"inputs_g{g}.npz", **arrays)
-    spawn_ranks(tmp, _STEP_RANK.format(hp=repr(HP), cases=repr(CASES)))
+    spawn_ranks(tmp, _STEP_RANK.format(hp=repr(HP), cases=repr(CASES), aug_seed=AUG_SEED))
     return [dict(np.load(tmp / f"out{r}.npz")) for r in range(2)]
 
 
 @pytest.fixture(scope="module")
 def jax_reference(setups):
-    return {g: _jax_two_steps(g, *setups[g]) for g in (0, 4)}
+    out = {(g, False): _jax_two_steps(g, *setups[g]) for g in (0, 4)}
+    variables, teacher, momentum, batches = setups[0]
+    out[0, True] = _jax_two_steps(0, variables, teacher, momentum, _augmented(batches))
+    return out
 
 
-@pytest.mark.parametrize("pallas,g", CASES,
-                         ids=[f"{'pallas' if p else 'plain'}-bn{g}" for p, g in CASES])
-def test_two_rank_steps_match_the_jax_global_batch_step(two_ranks, jax_reference, pallas, g):
-    (params, stats, buf), losses = jax_reference[g]
-    case = f"p{int(pallas)}g{g}"
+@pytest.mark.parametrize("pallas,g,aug", CASES,
+                         ids=[f"{'pallas' if p else 'plain'}-bn{g}" + ("-randaugment" if a else "")
+                              for p, g, a in CASES])
+def test_two_rank_steps_match_the_jax_global_batch_step(two_ranks, jax_reference, pallas, g,
+                                                        aug):
+    (params, stats, buf), losses = jax_reference[g, aug]
+    case = f"p{int(pallas)}g{g}a{int(aug)}"
     ref_sd = _port_state_dict(params, stats)
     ref_mom = _port_state_dict(buf, stats)
     for out in two_ranks:

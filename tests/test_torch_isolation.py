@@ -1,4 +1,5 @@
-"""The port stands alone: it imports no JAX and nothing of the JAX package,
+"""The port stands alone: it imports no JAX, nothing of the JAX package and no
+PIL (the machine with the card has none),
 and its entry points need CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -12,7 +13,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "a_pytorch_tutorial_to_class_incremental_learning_tpu_torch"
 JAX_PKG = "a_pytorch_tutorial_to_class_incremental_learning_tpu"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", JAX_PKG, "cil_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", JAX_PKG, "cil_tpu", "PIL")
 
 
 def _sources():

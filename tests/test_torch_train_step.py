@@ -186,7 +186,8 @@ CLI_ARGV = [
     "--data_set", "synthetic10", "--num_bases", "0", "--increment", "5",
     "--backbone", "resnet20", "--batch_size", "4", "--num_epochs", "2",
     "--eval_every_epoch", "100", "--memory_size", "20", "--aa", "none",
-    # color jitter defaults to 0.4 and arrives with a later slice.
+    # Crop and flip only; the parser's default augmentation runs in
+    # tests/test_torch_precision.py's CLI case.
     "--color_jitter", "0", "--seed", "6",
 ]
 
@@ -224,11 +225,11 @@ def test_cli_on_cpu_writes_the_record_sequence(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    [],  # the parser's defaults: RandAugment and color jitter 0.4
-    ["--aa", "none"],  # color jitter 0.4 still on
-    ["--aa", "none", "--color_jitter", "0", "--reprob", "0.25"],
-    ["--aa", "none", "--color_jitter", "0", "--precision", "bf16_selective"],
-    ["--aa", "none", "--color_jitter", "0", "--compute_dtype", "bfloat16"],
+    ["--epoch_ckpt_every", "1"],
+    ["--fault_state", "fs"],
+    ["--heartbeat_path", "hb"],
+    ["--profile_dir", "prof"],
+    ["--recompile_budget"],
     ["--aa", "none", "--color_jitter", "0", "--mesh_model", "2"],
     ["--aa", "none", "--color_jitter", "0", "--ckpt_dir", "ck"],
     ["--aa", "none", "--color_jitter", "0", "--resume"],
