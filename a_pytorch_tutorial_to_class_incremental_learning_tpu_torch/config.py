@@ -4,7 +4,8 @@ Same field names, flag names and defaults as the JAX package's
 ``config.py``, so one argv drives either trainer.  The port runs the parser's
 augmentation (RandAugment or colour jitter, random erasing) under every
 precision preset, on the per-step loop, on one device or data parallel over
-N processes; every flag that selects something outside it is rejected by
+N processes, with pickle checkpoints, resume and the training-side fault
+sites; every flag that selects something outside it is rejected by
 :func:`check_supported` (or, for ``--mesh_model``, ``parallel.data_axis``)
 with the name of the slice that will bring it, never silently ignored.
 """
@@ -150,18 +151,25 @@ class CilConfig:
         return dataclasses.replace(self, **kw)
 
 
+def _serves(fault_spec: Optional[str]) -> bool:
+    """True when the spec has a clause that fires only at a ``serve.*``
+    site (the serving fleet's)."""
+    if not fault_spec:
+        return False
+    from faults import ACTIONS, parse_fault_spec
+
+    return any(all(site.startswith("serve.") for site in ACTIONS[c.action])
+               for c in parse_fault_spec(fault_spec))
+
+
 # (field, predicate that is True when the value is outside this slice, slice)
 _LATER_SLICES = (
-    ("ckpt_dir", lambda v: v is not None, "checkpoints"),
-    ("resume", bool, "checkpoints"),
-    ("epoch_ckpt_every", lambda v: v > 0, "checkpoints"),
-    ("fault_spec", lambda v: v is not None, "faults"),
-    ("fault_state", lambda v: v is not None, "faults"),
+    ("ckpt_backend", lambda v: v == "orbax", "model-axis"),
+    ("fault_spec", _serves, "serving"),
     ("telemetry_dir", lambda v: v is not None, "telemetry"),
     ("heartbeat_path", lambda v: v is not None, "telemetry"),
     ("profile_dir", lambda v: v is not None, "telemetry"),
     ("recompile_budget", bool, "telemetry"),
-    ("check_donation", bool, "checkpoints"),
     ("check_threads", bool, "telemetry"),
     ("check_contracts", bool, "telemetry"),
     ("check_lockstep", bool, "lockstep"),

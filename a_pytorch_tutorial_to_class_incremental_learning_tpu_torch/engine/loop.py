@@ -6,7 +6,20 @@ the epochs (with the reference's eval cadence), weight-align the new head
 (tasks > 0), evaluate every seen task's slice, snapshot the teacher (a deep
 copy), herd the next memory, and write the ``run/epoch/task/cil_metrics/
 final`` JSONL records.  The fused epoch, prefetch, telemetry spans,
-checkpoints, faults, lockstep and export arrive with later slices.
+lockstep and export arrive with later slices.
+
+Checkpoints and faults (``utils/checkpoint.py``, the stdlib-only
+``faults/`` package): with ``--ckpt_dir`` a task checkpoint lands after
+each task's herding, and with ``--epoch_ckpt_every E`` an epoch checkpoint
+every E epochs; a transient save failure is logged (``ckpt_save_error``)
+and the run goes on.  ``--resume`` restores the newest valid checkpoint and
+skips the tasks (and, mid-task, the epochs and the head growth) it covers;
+the log is appended to.  ``--fault_spec`` fires at ``engine.epoch`` (after
+the epoch checkpoint), ``engine.step`` (after each step's dispatch),
+``data.produce`` (as each host batch is made) and ``ckpt.save``.  Every
+generator stream is seeded from ``(seed, stream, task[, epoch])`` alone and
+every shuffle hashes ``(seed, task, epoch)``, so no stream depends on the
+draws before it and an epoch-boundary resume repeats the uninterrupted run.
 
 The precision policy is resolved once from the config (``--precision``
 wins over ``--compute_dtype``) and handed to the model, the teacher (a copy
@@ -27,6 +40,7 @@ unsharded feature pass.  Rank 0 writes the JSONL log and prints; rank
 from __future__ import annotations
 
 import copy
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -86,8 +100,11 @@ class CilTrainer:
         if config.bn_group_size > 0:
             group_span(config.bn_group_size, config.batch_size, self.axis.size)
         use_full_f32()
-        self.jsonl = JsonlLogger(config.log_file, process_index=self.axis.rank,
+        # A resumed run appends, so the records before the crash stay.
+        self.jsonl = JsonlLogger(config.log_file, append=config.resume,
+                                 process_index=self.axis.rank,
                                  process_count=self.axis.size)
+        self.faults = self._fault_injector()
         self.scenario_train, self.nb_classes = build_scenario(config, train=True)
         self.scenario_val, _ = build_scenario(config, train=False)
 
@@ -164,6 +181,42 @@ class CilTrainer:
         self.acc1s: List[float] = []
         self.matrix = AccuracyMatrix()
         self.known = 0
+        self.start_task = 0
+        self.start_epoch = 0  # > 0 only after an epoch-checkpoint restore
+        self.resumed_from = None  # {"path", "kind": "task"|"epoch"} once resumed
+        if config.resume and config.ckpt_dir:
+            from ..utils.checkpoint import load_task_checkpoint
+
+            load_task_checkpoint(self)
+        if config.resume:
+            # Segment marker: records after it replace those of the tasks
+            # (and epochs) at or past the resume point.
+            extra = {}
+            if self.resumed_from is not None:
+                extra = {"path": self.resumed_from["path"],
+                         "kind": self.resumed_from["kind"]}
+            self.jsonl.log("resume", start_task=self.start_task,
+                           start_epoch=self.start_epoch, **extra)
+
+    def _fault_injector(self):
+        """The ``--fault_spec`` injector, or None.  Its ledger defaults to
+        ``<ckpt_dir>/fault_ledger.jsonl``: a relaunch with the same spec
+        finds the clause spent.  A fresh run archives an old ledger first
+        (rank 0, before every rank reads it), so its spec fires again."""
+        cfg = self.config
+        if not cfg.fault_spec:
+            return None
+        from faults import injector_from, rotate_ledger
+
+        ledger = cfg.fault_state
+        if ledger is None and cfg.ckpt_dir:
+            ledger = os.path.join(cfg.ckpt_dir, "fault_ledger.jsonl")
+        if not cfg.resume and self.axis.rank == 0:
+            archived = rotate_ledger(ledger)
+            if archived:
+                self.jsonl.log("fault_ledger_rotated", path=ledger, archived=archived)
+        barrier()
+        return injector_from(cfg.fault_spec, ledger_path=ledger, sink=self.jsonl)
 
     def _count(self, n: int) -> torch.Tensor:
         return torch.tensor([n], dtype=torch.int32, device=self.device)
@@ -180,13 +233,19 @@ class CilTrainer:
         """Run every task; returns the headline results."""
         increments = self.scenario_train.increments()
         for task_id, task_train in enumerate(self.scenario_train):
+            if task_id < self.start_task:
+                continue  # restored past this task
             nb_new = increments[task_id]
             dataset_val = self.scenario_val[: task_id + 1]
             if task_id > 0:
                 task_train.add_samples(*self.memory.get())
-            self._grow_state(task_id, self.known, nb_new)
+            # Mid-task resume: the restored model has this task's head
+            # already; growing it again would re-draw the new columns.
+            resume_epoch = self.start_epoch if task_id == self.start_task else 0
+            if resume_epoch == 0:
+                self._grow_state(task_id, self.known, nb_new)
             t0 = time.time()
-            self._fit_task(task_id, task_train, dataset_val)
+            self._fit_task(task_id, task_train, dataset_val, nb_new, resume_epoch)
 
             gamma = None
             if task_id > 0:
@@ -235,6 +294,7 @@ class CilTrainer:
             self.teacher = Teacher(model=teacher_model, known=self._count(self.known + nb_new))
             self._update_memory(task_id, task_train)
             self.known += nb_new
+            self._save_checkpoint(task_id)
         avg_inc = float(np.mean(self.acc1s)) if self.acc1s else 0.0
         print(f"avg incremental top-1 = {avg_inc:.3f}")
         summary = self.matrix.summary() if self.matrix.rows else {}
@@ -269,10 +329,37 @@ class CilTrainer:
         m = incs[task_id]
         return n / (n + m)
 
-    def _fit_task(self, task_id: int, task_train, dataset_val) -> None:
+    def _save_checkpoint(self, task_id: int) -> None:
+        if not self.config.ckpt_dir:
+            return
+        from ..utils.checkpoint import save_task_checkpoint
+
+        try:
+            save_task_checkpoint(self, task_id)
+        except OSError as e:
+            # A transient failure costs this boundary's durability, not the
+            # run: a resume falls back to the newest checkpoint that landed.
+            print(f"| task checkpoint save failed: {e!r}")
+            self.jsonl.log("ckpt_save_error", error=repr(e), task_id=task_id)
+
+    def _save_epoch_checkpoint(self, task_id: int, epoch: int, nb_new: int) -> None:
+        cfg = self.config
+        if not (cfg.ckpt_dir and cfg.epoch_ckpt_every > 0
+                and epoch % cfg.epoch_ckpt_every == 0):
+            return
+        from ..utils.checkpoint import save_epoch_checkpoint
+
+        try:
+            save_epoch_checkpoint(self, task_id, epoch, nb_new)
+        except OSError as e:
+            print(f"| epoch checkpoint save failed: {e!r}")
+            self.jsonl.log("ckpt_save_error", error=repr(e), task_id=task_id, epoch=epoch)
+
+    def _fit_task(self, task_id: int, task_train, dataset_val, nb_new: int,
+                  start_epoch: int = 0) -> None:
         cfg = self.config
         lam = self._lambda_kd(task_id)
-        for epoch in range(cfg.num_epochs):
+        for epoch in range(start_epoch, cfg.num_epochs):
             t_epoch = time.perf_counter()
             lr = cosine_lr(cfg.lr, epoch, cfg.num_epochs)
             clock = {"host_s": 0.0, "device_s": 0.0}
@@ -294,6 +381,11 @@ class CilTrainer:
                 stall_frac=round(clock["host_s"] / busy, 4) if busy > 0 else 0.0,
                 **{k: m.global_avg for k, m in logger.meters.items()},
             )
+            self._save_epoch_checkpoint(task_id, epoch + 1, nb_new)
+            # After the checkpoint hook: kill@taskT.epochE leaves epoch E's
+            # checkpoint on disk, and the relaunch resumes right there.
+            if self.faults is not None:
+                self.faults.fire("engine.epoch", task=task_id, epoch=epoch + 1)
             # The reference's cadence: with num_epochs a multiple of
             # eval_every_epoch this also evaluates at the last epoch, before
             # alignment, besides the post-alignment eval in fit().
@@ -317,6 +409,11 @@ class CilTrainer:
             batch = next(batches, None)
             if batch is None:
                 break
+            if self.faults is not None:
+                # data.produce: slow_batch stalls, producer_die raises here,
+                # as on the JAX package's synchronous (depth 0) path.
+                self.faults.fire("data.produce", task=task_id, epoch=epoch + 1,
+                                 step=len(rows) + 1)
             x, y = self._to_device(*batch)
             t1 = time.perf_counter()
             metrics = self.train_step(self.state, self.teacher, x, y, gen, lr, lam)
@@ -324,6 +421,10 @@ class CilTrainer:
                 keys = sorted(metrics)
             rows.append(torch.stack([metrics[k] for k in keys]))
             self.global_step += 1
+            # After the step's dispatch: a kill at step S keeps steps < S.
+            if self.faults is not None:
+                self.faults.fire("engine.step", task=task_id, epoch=epoch + 1,
+                                 step=len(rows))
             clock["host_s"] += t1 - t0
             clock["device_s"] += time.perf_counter() - t1
         t0 = time.perf_counter()

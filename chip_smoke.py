@@ -6,6 +6,10 @@
     python3 chip_smoke.py race <log.jsonl> [--init_state <state.pt>] <flags>
                                            # a race run, timed (optionally
                                            # from given task-0 weights)
+    python3 chip_smoke.py durable <out.pt> <flags>
+                                           # one CLI run under deterministic
+                                           # cuDNN (the durability phase's
+                                           # child; results to out.pt)
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -78,9 +82,30 @@ Phases, in order; any failure exits non-zero before the result lines:
    tasks, through the CLI's trainer: the record sequence, finite losses,
    γ > 0 after task 0, kernel launches per rank equal to the train steps,
    and the same memory on both ranks.
-5. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
-   line, the card's name and power limit, a ``{"kernels": [...]}`` line,
-   then the card line ``{"ok": true, "device": {...}}`` last.
+5. Durability: the main path's recipe (``synthetic_hard128``, resnet32,
+   100-wide head, batch 128, B50-inc10, 6 tasks, memory 256, RandAugment,
+   the CUDA kernels) at 2 epochs a task with ``--epoch_ckpt_every 1``, in
+   three legs.  (a) Twin: one uninterrupted CLI child.  (b) Chaos: the same
+   flags plus ``--fault_spec kill@task2.epoch1`` under
+   ``scripts/supervise.py``: the child dies by SIGKILL right after
+   ``task_002_epoch_001.ckpt`` lands, the supervisor relaunches it with
+   ``--resume``, and the relaunch must resume from that epoch checkpoint
+   (task 2, epoch 2) and finish.  Both children run under deterministic
+   cuDNN (``cudnn.deterministic``, no ``benchmark``), set by this script's
+   ``durable`` launcher, not by a flag of the port.  (b) must equal (a)
+   bitwise: acc1s, the accuracy matrix, γ at every alignment and the final
+   ``state_dict``; its log must be the twin's plus ``fault_injected`` and
+   the relaunch's ``run`` and ``resume``; the resumed child must launch
+   each CUDA kernel once per train step it runs.  (c) Round trip, in this
+   process: an epoch checkpoint (task 1, epoch 1: momentum, teacher, memory)
+   and a task checkpoint are saved and restored into a new trainer, and
+   every state tensor, the memory and the counters must come back bitwise.
+   Each leg's wall time, the payload bytes and the save and restore times
+   are printed beside the card.
+6. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
+   line, a ``{"durability": ...}`` line, the card's name and power limit, a
+   ``{"kernels": [...]}`` line, then the card line ``{"ok": true,
+   "device": {...}}`` last.
 
 Times: ``ms`` is the device-side spacing between back-to-back calls queued
 behind a sleep kernel, each bracketed by CUDA events (the event records
@@ -128,6 +153,11 @@ DP_HP = dict(lr=0.1, lambda_kd=0.5, label_smoothing=0.0, kd_temperature=2.0,
 RACE_ARGV = ["--data_set", "synthetic_hard128", "--backbone", "resnet32",
              "--num_bases", "50", "--increment", "10", "--memory_size", "256",
              "--use_pallas_loss"]
+# The durability phase: the main path's recipe with epoch checkpoints.
+DURABLE_ARGV = [*RACE_ARGV, "--batch_size", "128", "--num_epochs", "2",
+                "--epoch_ckpt_every", "1"]
+DURABLE_KILL = "kill@task2.epoch1"
+DURABLE_LEG_S = 420        # a leg's time limit
 AUG_SEED = 100             # parity step i augments with a generator seeded AUG_SEED + i
 AUG_B = 128                # the augment phase's batch (the train step's)
 INTEGER_OPS = (1, 2, 4, 5, 6)  # Equalize, Invert, Posterize, Solarize, SolarizeAdd
@@ -1269,6 +1299,232 @@ def phase_data_parallel(torch):
             "launches_per_rank": [out["launches"] for out in proto]}
 
 
+# --------------------------------------------------------------------------- #
+# Durability: checkpoint, kill, resume
+# --------------------------------------------------------------------------- #
+
+
+def durable_child(out: str, argv) -> int:
+    """``durable``: one CLI run on the card under deterministic cuDNN; the
+    kernel counts are zeroed just before ``fit`` and read just after, and
+    the results land in ``out`` only if the run finishes."""
+    import torch
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    trainer = build_trainer(argv)
+    step0 = trainer.global_step
+    fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    torch.save({
+        "launches": [fl.FWD_LAUNCHES, fl.BWD_LAUNCHES], "step0": step0,
+        "steps": trainer.global_step - step0, "fit_s": time.perf_counter() - t0,
+        "start": [trainer.start_task, trainer.start_epoch],
+        "resumed_from": trainer.resumed_from, "result": result,
+        "state": {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()},
+    }, out)
+    return 0
+
+
+def _run_leg(cmd, cwd, supervisor_log=None):
+    """Run one leg to its end within ``DURABLE_LEG_S``; on the deadline,
+    kill it and every child the supervisor launched.  Returns the exit code,
+    the wall seconds and the output's tail."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DURABLE_LEG_S)
+    except subprocess.TimeoutExpired:
+        pids = [proc.pid]
+        if supervisor_log and os.path.exists(supervisor_log):
+            pids += [json.loads(ln).get("pid") for ln in open(supervisor_log)]
+        for pid in {p for p in pids if p}:
+            try:
+                os.killpg(pid, 9)
+            except OSError:
+                pass
+        out, _ = proc.communicate()
+        raise SmokeFailure(f"durability leg {cmd[-1]} passed {DURABLE_LEG_S} s: {out[-2000:]}")
+    return proc.returncode, time.perf_counter() - t0, out[-3000:]
+
+
+def _state_equal(torch, a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _state_delta(torch, a, b):
+    """The largest |a - b| and the largest violation of rtol 1e-3 / atol 1e-4."""
+    worst, over = 0.0, 0.0
+    for k in a:
+        x, y = a[k].double(), b[k].double()
+        d = (x - y).abs()
+        worst = max(worst, d.max().item() if d.numel() else 0.0)
+        over = max(over, (d - (1e-4 + 1e-3 * y.abs())).max().item() if d.numel() else -1.0)
+    return worst, over
+
+
+def _round_trip(torch, tmp):
+    """(c): save an epoch and a task checkpoint of a trained trainer and
+    restore each into a new one; every tensor must come back bitwise."""
+    import numpy as np
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import (
+        checkpoint as ck,
+    )
+
+    ckpt = os.path.join(tmp, "round_trip")
+    tr = build_trainer([*DURABLE_ARGV, "--ckpt_dir", ckpt])
+    clock = {"host_s": 0.0, "device_s": 0.0}
+    task0, task1 = tr.scenario_train[0], tr.scenario_train[1]
+    tr._grow_state(0, 0, 50)
+    tr._run_epoch_steps(0, task0, 0, 0.1, 0.5, clock)
+    tr.teacher = ck._new_teacher(tr, 50)
+    tr._update_memory(0, task0)
+    tr.known, tr.acc1s = 50, [12.5]
+    tr.matrix.add_row(0, [12.5])
+    task1.add_samples(*tr.memory.get())
+    tr._grow_state(1, 50, 10)
+    tr._run_epoch_steps(1, task1, 0, 0.1, 0.5, clock)
+    torch.cuda.synchronize()
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def same_memory(a, b):
+        return a.keys() == b.keys() and all(
+            all(np.array_equal(x, y) for x, y in zip(a[c], b[c])) for c in a)
+
+    new = build_trainer([*DURABLE_ARGV, "--ckpt_dir", ckpt])
+    report = {}
+    path, save_ms = timed(ck.save_epoch_checkpoint, tr, 1, 1, 10)
+    ok, load_ms = timed(ck.load_task_checkpoint, new, path)
+    report["epoch"] = {"bytes": os.path.getsize(path), "save_ms": save_ms, "restore_ms": load_ms}
+    sd = lambda m: m.state_dict()  # noqa: E731
+    check(ok and new.resumed_from["kind"] == "epoch"
+          and [new.start_task, new.start_epoch] == [1, 1], "epoch restore point")
+    check(_state_equal(torch, sd(new.state.model), sd(tr.state.model)),
+          "epoch round trip: the model's parameters or buffers differ")
+    check(all(torch.equal(a, b) for a, b in zip(new.state.momentum, tr.state.momentum)),
+          "epoch round trip: the momentum differs")
+    check(_state_equal(torch, sd(new.teacher.model), sd(tr.teacher.model)),
+          "epoch round trip: the teacher differs")
+    check(same_memory(new.memory._store, tr.memory._store), "epoch round trip: the memory")
+    check((new.global_step, new.known, new.acc1s, new.matrix.rows)
+          == (tr.global_step, tr.known, tr.acc1s, tr.matrix.rows)
+          and torch.equal(new.state.num_active, tr.state.num_active)
+          and torch.equal(new.state.known, tr.state.known)
+          and torch.equal(new.teacher.known, tr.teacher.known),
+          "epoch round trip: the counters differ")
+    tr.known = 60
+    path, save_ms = timed(ck.save_task_checkpoint, tr, 1)
+    ok, load_ms = timed(ck.load_task_checkpoint, new, path)
+    report["task"] = {"bytes": os.path.getsize(path), "save_ms": save_ms, "restore_ms": load_ms}
+    check(ok and new.resumed_from["kind"] == "task" and new.start_task == 2, "task restore point")
+    check(_state_equal(torch, sd(new.state.model), sd(tr.state.model))
+          and _state_equal(torch, sd(new.teacher.model), sd(tr.state.model)),
+          "task round trip: the model or its teacher differs")
+    check(all(not m.any() for m in new.state.momentum), "task round trip: momentum not reset")
+    check(same_memory(new.memory._store, tr.memory._store) and new.known == 60
+          and int(new.state.num_active) == 60, "task round trip: the memory or the counters")
+    check(not any("epoch" in n for n in os.listdir(ckpt)), "the task save kept epoch files")
+    return report
+
+
+def phase_durability(torch):
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        legs = {}
+        for name in ("twin", "chaos"):
+            out, log = os.path.join(tmp, f"{name}.pt"), os.path.join(tmp, f"{name}.jsonl")
+            sup_log = os.path.join(tmp, "supervisor.jsonl")
+            cmd = [sys.executable, os.path.abspath(__file__), "durable", out, *DURABLE_ARGV,
+                   "--ckpt_dir", os.path.join(tmp, f"{name}_ckpt"), "--log_file", log]
+            if name == "chaos":
+                cmd = [sys.executable, os.path.join(here, "scripts", "supervise.py"),
+                       "--backoff_base", "0.1", "--backoff_max", "0.5", "--max_failures", "2",
+                       "--log", sup_log, "--", *cmd, "--fault_spec", DURABLE_KILL]
+            rc, wall_s, tail = _run_leg(cmd, here, sup_log if name == "chaos" else None)
+            check(rc == 0 and os.path.exists(out), f"durability leg {name} exited {rc}: {tail}")
+            legs[name] = torch.load(out)
+            legs[name]["wall_s"] = wall_s
+            legs[name]["log"] = [json.loads(ln) for ln in open(log)]
+        events = [json.loads(ln) for ln in open(sup_log)]
+        report = _round_trip(torch, tmp)
+
+    twin, chaos = legs["twin"], legs["chaos"]
+    check([e["event"] for e in events] == ["launch", "exit", "relaunch", "launch", "exit",
+                                           "done"]
+          and events[1]["returncode"] == -9
+          and [e["cmd"].count("--resume") for e in events if e["event"] == "launch"] == [0, 1],
+          f"the supervisor's events: {[(e['event'], e.get('returncode')) for e in events]}")
+    check(chaos["resumed_from"] is not None and chaos["resumed_from"]["kind"] == "epoch"
+          and chaos["resumed_from"]["path"].endswith("task_002_epoch_001.ckpt")
+          and chaos["start"] == [2, 1],
+          f"the relaunch resumed from {chaos['resumed_from']} at {chaos['start']}")
+    for name, leg in legs.items():
+        check(leg["steps"] > 0 and leg["launches"] == [leg["steps"]] * 2,
+              f"{name}: kernel launches {leg['launches']} != its {leg['steps']} train steps")
+    check(chaos["step0"] + chaos["steps"] == twin["steps"],
+          f"steps: {chaos['step0']} restored + {chaos['steps']} run != {twin['steps']}")
+
+    types = [r["type"] for r in twin["log"]]
+    cut = next(i for i, r in enumerate(twin["log"])
+               if r["type"] == "epoch" and (r["task_id"], r["epoch"]) == (2, 1)) + 1
+    want = types[:cut] + ["fault_injected", "run", "resume"] + types[cut:]
+    check([r["type"] for r in chaos["log"]] == want,
+          f"chaos record sequence {[r['type'] for r in chaos['log']]}")
+
+    gammas = {n: [r["gamma"] for r in leg["log"] if r["type"] == "task"]
+              for n, leg in legs.items()}
+    rt, cr = twin["result"], chaos["result"]
+    bitwise = (rt["acc1s"] == cr["acc1s"] and rt["acc_matrix"] == cr["acc_matrix"]
+               and gammas["twin"] == gammas["chaos"]
+               and _state_equal(torch, twin["state"], chaos["state"]))
+    state_abs, state_over = _state_delta(torch, chaos["state"], twin["state"])
+    acc_delta = max(abs(a - b) for a, b in zip(rt["acc1s"], cr["acc1s"]))
+    gamma_delta = max(abs(a - b) for a, b in zip(gammas["twin"][1:], gammas["chaos"][1:]))
+    deltas = {"bitwise": bitwise, "state_abs": state_abs, "acc1s": acc_delta,
+              "gamma": gamma_delta}
+    if not bitwise:
+        # The fallback the issue of this phase allows: the data-parallel
+        # phase's tolerances, printed; the op at fault is named in ROADMAP.
+        print(f"[durable] NOT bitwise under deterministic cuDNN: {deltas}")
+        check(len(cr["acc1s"]) == len(rt["acc1s"]) and state_over <= 0
+              and gamma_delta <= 0.02 and acc_delta <= 0.5,
+              f"the resumed run is outside the tolerances: {deltas}")
+    print(f"[durable] twin {twin['wall_s']:.1f} s wall (fit {twin['fit_s']:.1f} s, "
+          f"{twin['steps']} steps); chaos {chaos['wall_s']:.1f} s wall under the supervisor "
+          f"(resumed fit {chaos['fit_s']:.1f} s, {chaos['steps']} steps) [{CARD}]")
+    print(f"[durable] resumed from {os.path.basename(chaos['resumed_from']['path'])} at task "
+          f"{chaos['start'][0]}, epoch {chaos['start'][1] + 1}; launches {chaos['launches']}; "
+          f"bitwise equal to the twin: {bitwise} (state {state_abs:.3g}, acc1s "
+          f"{acc_delta:.3g}, gamma {gamma_delta:.3g})")
+    for kind, r in report.items():
+        print(f"[durable] {kind} payload {r['bytes']} bytes: save {r['save_ms']:.3f} ms, "
+              f"restore {r['restore_ms']:.3f} ms [{CARD}]")
+    return {"legs_wall_s": {n: leg["wall_s"] for n, leg in legs.items()},
+            "fit_s": {n: leg["fit_s"] for n, leg in legs.items()},
+            "steps": {n: leg["steps"] for n, leg in legs.items()},
+            "launches_resumed": chaos["launches"], "resumed_from": chaos["start"],
+            "deltas": deltas, "round_trip": report, "acc1s": cr["acc1s"],
+            "gammas": gammas["chaos"]}
+
+
 def launch_cli(argv) -> int:
     """``launch2``: the CLI at ``DP_RANKS`` data-parallel ranks."""
     import torch
@@ -1343,6 +1599,8 @@ def main() -> int:
         return launch_cli(sys.argv[2:])
     if len(sys.argv) > 2 and sys.argv[1] == "race":
         return race(sys.argv[2], sys.argv[3:])
+    if len(sys.argv) > 2 and sys.argv[1] == "durable":
+        return durable_child(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
@@ -1356,6 +1614,7 @@ def main() -> int:
         launches = phase_main_path(torch)
         precision = phase_precision(torch)
         dp = phase_data_parallel(torch)
+        durability = phase_durability(torch)
     except (SmokeFailure, ImportError) as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -1411,6 +1670,7 @@ def main() -> int:
     }}))
     print(json.dumps({"augment": augment, "precision": precision,
                       "main_path_step_ms": launches["step_ms"], "card": smi}))
+    print(json.dumps({"durability": durability, "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu import config as jcfg
 from a_pytorch_tutorial_to_class_incremental_learning_tpu.data import augment as jaug
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch import config as tcfg
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import augment as taug
+from test_torch_dist import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 INTEGER_OPS = (1, 2, 4, 5, 6)  # Equalize, Invert, Posterize, Solarize, SolarizeAdd
 MAGS = (0.0, 4.5, 9.0, 10.0)

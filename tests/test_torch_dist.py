@@ -85,6 +85,18 @@ def spawn_ranks(tmp_path, script, nprocs=2, timeout=120.0, argv=()):
 
 
 @pytest.fixture
+def one_intra_op_thread():
+    """torch on one intra-op thread for the test (``pytestmark =
+    pytest.mark.usefixtures("one_intra_op_thread")`` in a file that imports
+    it): beside the other test workers, torch's default pool of one thread
+    a core oversubscribes the cores and its parallel regions stall."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
 def no_dist_env(monkeypatch):
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)

@@ -19,7 +19,7 @@ from test_torch_dist import PORT, REPO, spawn_ranks
 # 1's mean loss by ~3e-3; at 0.02 both runs stay within ~3e-4 of each other.
 CLI_ARGV = [
     "--platform", "cpu", "--data_set", "synthetic10", "--num_bases", "0",
-    "--increment", "5", "--backbone", "resnet20", "--num_epochs", "2",
+    "--increment", "5", "--backbone", "resnet20", "--num_epochs", "1",
     "--eval_every_epoch", "100", "--memory_size", "20", "--aa", "none",
     "--color_jitter", "0", "--seed", "6", "--lr", "0.02",
 ]

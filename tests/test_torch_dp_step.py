@@ -18,6 +18,8 @@ the single-process step test); the two ranks' states bitwise equal.  The
 CLI at two ranks is ``tests/test_torch_dp_cli.py``.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import jax
@@ -181,7 +183,29 @@ def setups():
 
 
 @pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory, setups):
+def runs(tmp_path_factory, setups):
+    """The two ranks' steps and the JAX reference: the JAX steps are
+    computed here while the rank processes run."""
+    ranks = {}
+
+    def run():
+        try:
+            ranks["out"] = _two_ranks(tmp_path_factory, setups)
+        except BaseException as exc:  # re-raised in the test's thread
+            ranks["error"] = exc
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    try:
+        reference = _jax_reference(setups)
+    finally:
+        worker.join()
+    if "error" in ranks:
+        raise ranks["error"]
+    return ranks["out"], reference
+
+
+def _two_ranks(tmp_path_factory, setups):
     tmp = tmp_path_factory.mktemp("dp_step")
     names = _param_names()
     for g, (variables, teacher, momentum, batches) in setups.items():
@@ -199,8 +223,7 @@ def two_ranks(tmp_path_factory, setups):
     return [dict(np.load(tmp / f"out{r}.npz")) for r in range(2)]
 
 
-@pytest.fixture(scope="module")
-def jax_reference(setups):
+def _jax_reference(setups):
     out = {(g, False): _jax_two_steps(g, *setups[g]) for g in (0, 4)}
     variables, teacher, momentum, batches = setups[0]
     out[0, True] = _jax_two_steps(0, variables, teacher, momentum, _augmented(batches))
@@ -210,8 +233,8 @@ def jax_reference(setups):
 @pytest.mark.parametrize("pallas,g,aug", CASES,
                          ids=[f"{'pallas' if p else 'plain'}-bn{g}" + ("-randaugment" if a else "")
                               for p, g, a in CASES])
-def test_two_rank_steps_match_the_jax_global_batch_step(two_ranks, jax_reference, pallas, g,
-                                                        aug):
+def test_two_rank_steps_match_the_jax_global_batch_step(runs, pallas, g, aug):
+    two_ranks, jax_reference = runs
     (params, stats, buf), losses = jax_reference[g, aug]
     case = f"p{int(pallas)}g{g}a{int(aug)}"
     ref_sd = _port_state_dict(params, stats)

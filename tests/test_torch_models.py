@@ -19,6 +19,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch import models as
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.jax_weights import (
     from_jax_variables,
 )
+from test_torch_dist import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 RTOL, ATOL = 2e-4, 2e-5
 

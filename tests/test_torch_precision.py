@@ -439,7 +439,7 @@ def test_cli_with_default_augmentation_and_bf16_selective(tmp_path):
     (RandAugment) and ``--precision bf16_selective`` runs to its end."""
     log = tmp_path / "run.jsonl"
     argv = ["--platform", "cpu", "--data_set", "synthetic10", "--num_bases", "0",
-            "--increment", "5", "--backbone", "resnet20", "--batch_size", "4",
+            "--increment", "5", "--backbone", "resnet20", "--batch_size", "16",
             "--num_epochs", "2", "--eval_every_epoch", "100", "--memory_size", "20",
             "--seed", "6", "--precision", "bf16_selective", "--use_pallas_loss",
             "--log_file", str(log)]

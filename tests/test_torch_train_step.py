@@ -34,6 +34,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import buil
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.jax_weights import (
     from_jax_variables,
 )
+from test_torch_dist import one_intra_op_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "a_pytorch_tutorial_to_class_incremental_learning_tpu_torch"
@@ -107,13 +110,32 @@ def _jax_step(variables, teacher, momentum, x, y, smooth):
     return model, params, buf, unfreeze(stats), loss
 
 
-@pytest.mark.parametrize("use_pallas_loss", [False, True])
-def test_one_step_with_teacher_matches_jax(use_pallas_loss):
+@pytest.fixture(scope="module")
+def jax_step_reference():
+    """The inputs, the JAX step, then JAX's alignment and eval totals of
+    its stepped model: computed once for both loss paths."""
     smooth = 0.1
     _, variables, teacher, momentum, x, y = _setup(smooth)
-    model, ref_params, ref_buf, ref_stats, ref_loss = _jax_step(
-        variables, teacher, momentum, x, y, smooth
+    step = _jax_step(variables, teacher, momentum, x, y, smooth)
+    _, ref_params, _, ref_stats, _ = step
+    aligned, ref_gamma = jm.align(
+        {"params": jax.tree_util.tree_map(jnp.asarray, ref_params)}, known=5, nb_new=5
     )
+    jmodel, _ = jm.create_model("resnet20", nb_classes=10)
+    u8 = np.random.RandomState(8).randint(0, 256, (8, 32, 32, 3)).astype(np.uint8)
+    w = np.array([1, 1, 1, 1, 1, 1, 0, 0], np.float32)
+    jeval = jt.make_eval_step(jmodel, jaug.AugmentConfig())
+    ref_tot = np.asarray(jeval(aligned["params"], ref_stats, jnp.asarray(u8), jnp.asarray(y),
+                               jnp.asarray(w), jnp.int32(10)))
+    return (smooth, variables, teacher, momentum, x, y, step,
+            (aligned, ref_gamma, u8, w, ref_tot))
+
+
+@pytest.mark.parametrize("use_pallas_loss", [False, True])
+def test_one_step_with_teacher_matches_jax(jax_step_reference, use_pallas_loss):
+    smooth, variables, teacher, momentum, x, y, ref, ref_eval = jax_step_reference
+    model, ref_params, ref_buf, ref_stats, ref_loss = ref
+    aligned, ref_gamma, u8, w, ref_tot = ref_eval
 
     student = _port_model(variables)
     t_model = _port_model(teacher).requires_grad_(False)
@@ -146,20 +168,11 @@ def test_one_step_with_teacher_matches_jax(use_pallas_loss):
                                        rtol=1e-4, atol=1e-5, err_msg=name)
 
     # Then weight alignment of the new head and the eval totals.
-    aligned, ref_gamma = jm.align(
-        {"params": jax.tree_util.tree_map(jnp.asarray, ref_params)}, known=5, nb_new=5
-    )
-    jmodel, _ = jm.create_model("resnet20", nb_classes=10)
     gamma = tm.align(student, known=5, nb_new=5)
     assert np.isclose(gamma, ref_gamma, rtol=1e-4)
     np.testing.assert_allclose(student.fc.weight.detach().numpy().T,
                                np.asarray(aligned["params"]["fc_kernel"]), rtol=1e-4, atol=1e-5)
 
-    u8 = np.random.RandomState(8).randint(0, 256, (8, 32, 32, 3)).astype(np.uint8)
-    w = np.array([1, 1, 1, 1, 1, 1, 0, 0], np.float32)
-    jeval = jt.make_eval_step(jmodel, jaug.AugmentConfig())
-    ref_tot = np.asarray(jeval(aligned["params"], ref_stats, jnp.asarray(u8), jnp.asarray(y),
-                               jnp.asarray(w), jnp.int32(10)))
     got_tot = tt.make_eval_step(taug.AugmentConfig())(
         student, torch.from_numpy(u8), torch.from_numpy(y), torch.from_numpy(w), _count(10)
     ).numpy()
@@ -184,7 +197,7 @@ def test_sgd_update_is_torch_sgd():
 
 CLI_ARGV = [
     "--data_set", "synthetic10", "--num_bases", "0", "--increment", "5",
-    "--backbone", "resnet20", "--batch_size", "4", "--num_epochs", "2",
+    "--backbone", "resnet20", "--batch_size", "16", "--num_epochs", "2",
     "--eval_every_epoch", "100", "--memory_size", "20", "--aa", "none",
     # Crop and flip only; the parser's default augmentation runs in
     # tests/test_torch_precision.py's CLI case.
@@ -225,15 +238,15 @@ def test_cli_on_cpu_writes_the_record_sequence(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--epoch_ckpt_every", "1"],
-    ["--fault_state", "fs"],
+    ["--ckpt_backend", "orbax"],
+    ["--check_threads"],
     ["--heartbeat_path", "hb"],
     ["--profile_dir", "prof"],
     ["--recompile_budget"],
     ["--aa", "none", "--color_jitter", "0", "--mesh_model", "2"],
-    ["--aa", "none", "--color_jitter", "0", "--ckpt_dir", "ck"],
-    ["--aa", "none", "--color_jitter", "0", "--resume"],
-    ["--aa", "none", "--color_jitter", "0", "--fault_spec", "kill@task1"],
+    ["--aa", "none", "--color_jitter", "0", "--fault_spec", "replica_die@task0"],
+    ["--aa", "none", "--color_jitter", "0", "--fault_spec", "kill@task1,swap_ioerror@task1"],
+    ["--aa", "none", "--color_jitter", "0", "--check_contracts"],
     ["--aa", "none", "--color_jitter", "0", "--telemetry_dir", "tel"],
     ["--aa", "none", "--color_jitter", "0", "--export_dir", "exp"],
     ["--aa", "none", "--color_jitter", "0", "--check_lockstep"],
