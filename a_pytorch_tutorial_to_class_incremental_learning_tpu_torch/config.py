@@ -104,8 +104,8 @@ class CilConfig:
     bn_group_size: int = 0
     use_pallas_loss: bool = False  # the fused masked-CE kernel (ops/)
     compile_cache: str = ""        # XLA's cache: the port has no compiler cache
-    fused_epochs: bool = True      # the port always runs the per-step loop
-    prefetch_depth: int = 0
+    fused_epochs: bool = True      # the epoch on the resident dataset (engine/train.py)
+    prefetch_depth: int = 0        # ring depth of the per-batch paths (data/prefetch.py)
 
     ckpt_dir: Optional[str] = None
     ckpt_backend: str = "pickle"
@@ -174,7 +174,6 @@ _LATER_SLICES = (
     ("check_contracts", bool, "telemetry"),
     ("check_lockstep", bool, "lockstep"),
     ("lockstep_dir", lambda v: v is not None, "lockstep"),
-    ("prefetch_depth", lambda v: v > 0, "prefetch"),
     ("export_dir", lambda v: v is not None, "serving"),
     ("serve_skew_check", bool, "serving"),
 )
@@ -273,9 +272,13 @@ def get_args_parser() -> argparse.ArgumentParser:
                    "kernels (CUDA C++ on CUDA; their plain version on the CPU)")
     p.add_argument("--no_fused_epochs", action="store_false",
                    dest="fused_epochs", default=True,
-                   help="accepted for parity; the port runs one step per "
-                   "batch either way")
-    p.add_argument("--prefetch_depth", default=d.prefetch_depth, type=int)
+                   help="run the per-step loop (one host batch and one step "
+                   "dispatch at a time) instead of the fused epoch on the "
+                   "task dataset held on the device")
+    p.add_argument("--prefetch_depth", default=d.prefetch_depth, type=int,
+                   help="ring depth of the per-batch paths' producer thread "
+                   "(0 = synchronous); on the fused path, > 0 also copies "
+                   "the next task's dataset ahead")
     p.add_argument("--platform", default="default",
                    choices=["default", "cpu", "cuda"],
                    help="torch device: default = cuda, and an error when no "

@@ -33,6 +33,12 @@
 //   - num_active, the labels and the upstream gradient are read through
 //     pointers: the train step never waits on the host.
 //
+// Launch counts.  Thread 0 of block 0 of every launch adds 1 to a 64-bit
+// counter in device memory (`launches`, one for each kernel), so a run can
+// show how often a kernel ran on the card, also when it ran as a node of a
+// replayed CUDA graph, where the host-side launcher is called only once, at
+// the capture.
+//
 // Why no wgmma, TMA or mbarriers: wgmma needs a matrix product and there is
 // none; TMA and mbarriers stage tiles through shared memory, while here each
 // value is used by the one thread that loads it, and the whole input is
@@ -223,9 +229,11 @@ fused_ce_fwd_sm90(const typename E::Raw* __restrict__ x, long long B, int W, lon
                   const long long* __restrict__ labels, const int* __restrict__ num_active,
                   float smoothing, float scale, float* __restrict__ per,
                   float* __restrict__ lse_out, float* __restrict__ partials,
-                  unsigned* __restrict__ ticket, float* __restrict__ out) {
+                  unsigned* __restrict__ ticket, float* __restrict__ out,
+                  unsigned long long* __restrict__ launches) {
   __shared__ float row_loss[kRowsPerBlock];
   __shared__ bool last_block;
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ull);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const long long r = static_cast<long long>(blockIdx.x) * kRowsPerBlock + warp;
   float loss = 0.f;
@@ -276,7 +284,8 @@ fused_ce_bwd_sm90(const typename E::Raw* __restrict__ x, long long B, int W, lon
                   const long long* __restrict__ labels, const int* __restrict__ num_active,
                   const float* __restrict__ lse, const float* __restrict__ grad,
                   float smoothing, float scale, typename E::Raw* __restrict__ dx,
-                  long long dx_stride) {
+                  long long dx_stride, unsigned long long* __restrict__ launches) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ull);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const long long r = static_cast<long long>(blockIdx.x) * kRowsPerBlock + warp;
   if (r >= B) return;
@@ -358,6 +367,7 @@ struct FwdArgs {
   float *per, *lse, *partials;
   unsigned* ticket;
   float* out;
+  unsigned long long* launches;
   cudaStream_t stream;
 };
 
@@ -372,6 +382,7 @@ struct BwdArgs {
   float smoothing, scale;
   void* dx;
   long long dx_stride;
+  unsigned long long* launches;
   cudaStream_t stream;
 };
 
@@ -380,7 +391,7 @@ struct FwdLaunch {
   static cudaError_t run(const FwdArgs& a) {
     fused_ce_fwd_sm90<E, V><<<num_blocks(a.B), kWarp * kRowsPerBlock, 0, a.stream>>>(
         static_cast<const typename E::Raw*>(a.x), a.B, a.W, a.stride, a.labels, a.num_active,
-        a.smoothing, a.scale, a.per, a.lse, a.partials, a.ticket, a.out);
+        a.smoothing, a.scale, a.per, a.lse, a.partials, a.ticket, a.out, a.launches);
     return cudaGetLastError();
   }
 };
@@ -391,7 +402,7 @@ struct BwdLaunch {
     fused_ce_bwd_sm90<E, V><<<num_blocks(a.B), kWarp * kRowsPerBlock, 0, a.stream>>>(
         static_cast<const typename E::Raw*>(a.x), a.B, a.W, a.stride, a.labels, a.num_active,
         a.lse, a.grad, a.smoothing, a.scale, static_cast<typename E::Raw*>(a.dx),
-        a.dx_stride);
+        a.dx_stride, a.launches);
     return cudaGetLastError();
   }
 };
@@ -431,12 +442,13 @@ extern "C" const char* fused_ce_error_string(int err) {
 // per[B], lse[B] and out = scale * sum(per) for logits [B, W] (f32 or bf16,
 // row stride `stride` elements).  `partials` holds ceil(B / rows per block)
 // floats of scratch; `ticket` is one zeroed unsigned int that the kernel
-// leaves at 0.  Returns the launch's CUDA error code (0 on success).
+// leaves at 0; the kernel adds 1 to the unsigned 64-bit `launches` each time
+// it runs.  Returns the launch's CUDA error code (0 on success).
 extern "C" int fused_ce_fwd_launch(int device, const void* x, int dtype, long long B, int W,
                                    long long stride, const void* labels,
                                    const void* num_active, float smoothing, float scale,
                                    void* per, void* lse, void* partials, void* ticket,
-                                   void* out, void* stream) {
+                                   void* out, void* launches, void* stream) {
   if (B <= 0 || W <= 0) return cudaErrorInvalidValue;
   DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
@@ -445,24 +457,27 @@ extern "C" int fused_ce_fwd_launch(int device, const void* x, int dtype, long lo
                   smoothing, scale,
                   static_cast<float*>(per), static_cast<float*>(lse),
                   static_cast<float*>(partials), static_cast<unsigned*>(ticket),
-                  static_cast<float*>(out), static_cast<cudaStream_t>(stream)};
+                  static_cast<float*>(out), static_cast<unsigned long long*>(launches),
+                  static_cast<cudaStream_t>(stream)};
   return dispatch<FwdLaunch>(dtype, vec_elems(elem_bytes(dtype), x, stride, nullptr, 0), a);
 }
 
 // dlogits [B, W] (row stride `dx_stride`) in the logits' dtype, for the
-// upstream 0-d f32 `grad` of scale * sum(per).
+// upstream 0-d f32 `grad` of scale * sum(per); the kernel adds 1 to the
+// unsigned 64-bit `launches` each time it runs.
 extern "C" int fused_ce_bwd_launch(int device, const void* x, int dtype, long long B, int W,
                                    long long stride, const void* labels,
                                    const void* num_active, const void* lse, const void* grad,
                                    float smoothing, float scale, void* dx, long long dx_stride,
-                                   void* stream) {
+                                   void* launches, void* stream) {
   if (B <= 0 || W <= 0) return cudaErrorInvalidValue;
   DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
   const BwdArgs a{x, B, W, stride,
                   static_cast<const long long*>(labels), static_cast<const int*>(num_active),
                   static_cast<const float*>(lse), static_cast<const float*>(grad),
-                  smoothing, scale, dx, dx_stride, static_cast<cudaStream_t>(stream)};
+                  smoothing, scale, dx, dx_stride, static_cast<unsigned long long*>(launches),
+                  static_cast<cudaStream_t>(stream)};
   const int v = vec_elems(elem_bytes(dtype), x, stride, dx, dx_stride);
   return dispatch<BwdLaunch>(dtype, v, a);
 }

@@ -9,7 +9,12 @@ from .memory import (  # noqa: F401
     herd_cluster,
     herd_random,
 )
-from .loader import eval_batches, sequential_batches, train_batches  # noqa: F401
+from .loader import (  # noqa: F401
+    epoch_index_table,
+    eval_batches,
+    sequential_batches,
+    train_batches,
+)
 
 
 def build_scenario(config, train: bool):

@@ -29,6 +29,22 @@ def _per_process(batch_size: int, process_count: int) -> int:
     return per_proc
 
 
+def index_table(perm: np.ndarray, batch_size: int) -> np.ndarray:
+    """A permutation as rows of global batches, ``[nb_steps, batch_size]``,
+    wrap-padded to whole batches (``np.resize``, the sampler's
+    equalization rule; JAX's fused epoch lays its permutation out alike
+    with ``jnp.resize``)."""
+    nb_steps = max(1, -(-len(perm) // batch_size))
+    return np.resize(perm, (nb_steps, batch_size))
+
+
+def epoch_index_table(n: int, batch_size: int, seed: int) -> np.ndarray:
+    """The epoch's index table: the seeded permutation of ``n`` samples
+    as :func:`index_table` rows.  The per-step loader and the fused epoch
+    read the same table."""
+    return index_table(_epoch_perm(seed, n), batch_size)
+
+
 def train_batches(
     task: TaskSet,
     batch_size: int,
@@ -38,14 +54,10 @@ def train_batches(
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Shuffled ``(x uint8, y)`` batches for one epoch; this process's
     ``batch_size // process_count`` stripe of each global batch."""
-    n = len(task)
-    perm = _epoch_perm(seed, n)
-    nb_batches = max(1, -(-n // batch_size))
-    padded = np.resize(perm, nb_batches * batch_size)
     per_proc = _per_process(batch_size, process_count)
-    for b in range(nb_batches):
-        idx = padded[b * batch_size : (b + 1) * batch_size]
-        idx = idx[process_index * per_proc : (process_index + 1) * per_proc]
+    stripe = slice(process_index * per_proc, (process_index + 1) * per_proc)
+    for idx in epoch_index_table(len(task), batch_size, seed):
+        idx = idx[stripe]
         yield task.x[idx], task.y[idx]
 
 

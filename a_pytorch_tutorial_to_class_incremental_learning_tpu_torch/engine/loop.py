@@ -1,12 +1,38 @@
 """The WA task loop: per-task train, align, eval and herd.
 
-Counterpart of the JAX package's ``engine/loop.py`` on its per-step path.
-Per task: inject the rehearsal exemplars, grow the head and reset SGD, run
-the epochs (with the reference's eval cadence), weight-align the new head
-(tasks > 0), evaluate every seen task's slice, snapshot the teacher (a deep
-copy), herd the next memory, and write the ``run/epoch/task/cil_metrics/
-final`` JSONL records.  The fused epoch, prefetch, telemetry spans,
-lockstep and export arrive with later slices.
+Counterpart of the JAX package's ``engine/loop.py``.  Per task: inject the
+rehearsal exemplars, grow the head and reset SGD, run the epochs (with the
+reference's eval cadence), weight-align the new head (tasks > 0), evaluate
+every seen task's slice, snapshot the teacher (a deep copy), herd the next
+memory, and write the ``run/epoch/task/cil_metrics/final`` JSONL records.
+Telemetry spans, lockstep and export arrive with later slices.
+
+The fused epoch (``--fused_epochs``, the parser's default; JAX
+``engine/loop.py:715``): when the task's pixels are uint8, its dataset goes
+to the device once per task and every epoch runs through
+:func:`~.train.make_epoch_fn`: the batches are gathered on the device, and
+on CUDA at one rank each step is a replay of a CUDA graph captured once per
+task.  ``--no_fused_epochs`` runs the per-step loop, one host batch and one
+step dispatch at a time.  Both paths read the same epoch index table
+(``data/loader.py:epoch_index_table``, the seeded permutation of
+``hash((seed, task, epoch))`` wrap-padded to whole batches) and the same
+augmentation generator, reseeded each epoch from ``(seed, stream, task,
+epoch)``, so they train bitwise alike.  This departs from the JAX package,
+whose fused epoch draws another permutation on the device
+(``jax.random.permutation(fold_in(key, 0xC0FFEE), n)``) than its per-step
+loop: the port keeps one order, so the two paths and an epoch-boundary
+resume agree exactly, and needs no copy of threefry's shuffle.
+
+``--prefetch_depth N > 0`` (``data/prefetch.py``) moves batch production
+and the host-to-device copy of the per-batch paths (the per-step train
+loop, evaluation and the herding pass) onto a producer thread with a ring
+of N batches, on a side stream on CUDA; the stream of batches is the same
+at every depth.  On the fused path it arms a warm ring instead: after the
+herding of task t, the next task's dataset (its slice plus the new
+exemplars) is copied to the device in the background, and task t+1 takes
+it after checking the task id, the labels and every (N/8)-th row
+(``prefetch_warm`` records a hit or a miss with its reason; a miss copies
+synchronously).
 
 Checkpoints and faults (``utils/checkpoint.py``, the stdlib-only
 ``faults/`` package): with ``--ckpt_dir`` a task checkpoint lands after
@@ -15,11 +41,13 @@ every E epochs; a transient save failure is logged (``ckpt_save_error``)
 and the run goes on.  ``--resume`` restores the newest valid checkpoint and
 skips the tasks (and, mid-task, the epochs and the head growth) it covers;
 the log is appended to.  ``--fault_spec`` fires at ``engine.epoch`` (after
-the epoch checkpoint), ``engine.step`` (after each step's dispatch),
-``data.produce`` (as each host batch is made) and ``ckpt.save``.  Every
-generator stream is seeded from ``(seed, stream, task[, epoch])`` alone and
-every shuffle hashes ``(seed, task, epoch)``, so no stream depends on the
-draws before it and an epoch-boundary resume repeats the uninterrupted run.
+the epoch checkpoint), ``engine.step`` (after each step's dispatch on the
+per-step path; settled by ``reconcile_steps`` after a fused epoch, before
+its checkpoint), ``data.produce`` (as each host batch is placed, on the
+producer thread at depth > 0) and ``ckpt.save``.  Every generator stream
+is seeded from ``(seed, stream, task[, epoch])`` alone and every shuffle
+hashes ``(seed, task, epoch)``, so no stream depends on the draws before it
+and an epoch-boundary resume repeats the uninterrupted run.
 
 The precision policy is resolved once from the config (``--precision``
 wins over ``--compute_dtype``) and handed to the model, the teacher (a copy
@@ -32,9 +60,10 @@ stripe ``[r·b, (r+1)·b)`` of each global batch; the eval totals are
 all-reduced before their one host fetch.  Everything else is replicated
 with no communication: the model is made from the same seed and broadcast
 from rank 0 once, head growth and augmentation draw from generators seeded
-alike on every rank, and every rank herds the same memory from the full,
-unsharded feature pass.  Rank 0 writes the JSONL log and prints; rank
-``r > 0`` writes ``<name>_p<r>.jsonl``.
+alike on every rank, every rank holds the whole task dataset on the fused
+path, and every rank herds the same memory from the full, unsharded
+feature pass.  Rank 0 writes the JSONL log and prints; rank ``r > 0``
+writes ``<name>_p<r>.jsonl``.
 """
 
 from __future__ import annotations
@@ -52,21 +81,25 @@ from ..config import CilConfig, check_supported
 from ..data import (
     RehearsalMemory,
     build_scenario,
+    epoch_index_table,
     eval_batches,
     sequential_batches,
     train_batches,
 )
 from ..data.augment import AugmentConfig
+from ..data.prefetch import DevicePrefetcher, to_device
 from ..models import align, create_model, group_span, grow
 from ..ops.precision import policy_from_config
 from ..parallel import barrier, broadcast_module, data_axis
-from ..telemetry import AccuracyMatrix, average_incremental_accuracy
+from ..telemetry import AccuracyMatrix, StallClock, average_incremental_accuracy
 from ..utils.logging import JsonlLogger, MetricLogger
 from ..utils.platform import derive_seed, make_generator, resolve_device, use_full_f32
 from .train import (
+    METRICS,
     Teacher,
     TrainState,
     cosine_lr,
+    make_epoch_fn,
     make_eval_step,
     make_feature_step,
     make_train_step,
@@ -139,9 +172,7 @@ class CilTrainer:
             fixed_memory=config.fixed_memory,
             nb_total_classes=self.nb_classes if config.fixed_memory else None,
         )
-        self.train_step = make_train_step(
-            self.aug_cfg,
-            self.policy,
+        step_hp = dict(
             label_smoothing=config.smooth,
             kd_temperature=config.kd_temperature,
             momentum=config.momentum,
@@ -149,6 +180,15 @@ class CilTrainer:
             use_pallas_loss=config.use_pallas_loss,
             axis=self.axis,
         )
+        self.train_step = make_train_step(self.aug_cfg, self.policy, **step_hp)
+        self.epoch_fn = make_epoch_fn(self.aug_cfg, self.policy, device=self.device, **step_hp)
+        # lr and λ as 0-d device tensors, as JAX traces them: a captured
+        # step reads their values at each replay.
+        self._lr = torch.zeros((), device=self.device)
+        self._lam = torch.zeros((), device=self.device)
+        # The next task's dataset, armed by the herding phase on the warm
+        # ring (--prefetch_depth > 0 on the fused path); see _warm_next_task.
+        self._task_warm = None
         self.eval_step = make_eval_step(self.aug_cfg)
         self.feature_step = make_feature_step(
             self.aug_cfg, augmented=config.herding_augmented
@@ -222,8 +262,9 @@ class CilTrainer:
         return torch.tensor([n], dtype=torch.int32, device=self.device)
 
     def _to_device(self, *arrays: np.ndarray):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in arrays)
+        """The host-to-device copy of a batch; through pinned memory,
+        without blocking the host, when a prefetcher's producer makes it."""
+        return to_device(self.device, *arrays, pinned=self.config.prefetch_depth > 0)
 
     # ------------------------------------------------------------------ #
     # The experiment
@@ -231,6 +272,16 @@ class CilTrainer:
 
     def fit(self) -> Dict:
         """Run every task; returns the headline results."""
+        try:
+            return self._fit_tasks()
+        finally:
+            # A warm ring armed for a task that never ran (the last task, a
+            # crash) must still release its thread and device buffers.
+            if self._task_warm is not None:
+                self._task_warm["prefetcher"].close()
+                self._task_warm = None
+
+    def _fit_tasks(self) -> Dict:
         increments = self.scenario_train.increments()
         for task_id, task_train in enumerate(self.scenario_train):
             if task_id < self.start_task:
@@ -293,6 +344,10 @@ class CilTrainer:
             teacher_model = copy.deepcopy(self.state.model).requires_grad_(False)
             self.teacher = Teacher(model=teacher_model, known=self._count(self.known + nb_new))
             self._update_memory(task_id, task_train)
+            # The memory is final for the next task: start its dataset's copy
+            # to the device, overlapping the checkpoint and the next task's
+            # setup.
+            self._warm_next_task(task_id)
             self.known += nb_new
             self._save_checkpoint(task_id)
         avg_inc = float(np.mean(self.acc1s)) if self.acc1s else 0.0
@@ -358,17 +413,45 @@ class CilTrainer:
     def _fit_task(self, task_id: int, task_train, dataset_val, nb_new: int,
                   start_epoch: int = 0) -> None:
         cfg = self.config
-        lam = self._lambda_kd(task_id)
+        # The fused epoch needs the pixels in memory as uint8.
+        fused = cfg.fused_epochs and task_train.x.dtype == np.uint8
+        if fused:
+            # The last task's captured step read tensors that this task
+            # rebinds: the grown head and fresh momentum, the teacher, and
+            # the dataset and generator below.
+            self.epoch_fn.reset()
+            # The task's dataset lives on the device for the whole task: from
+            # the warm ring on a verified hit, else by a synchronous copy.
+            resident = self._consume_task_warm(task_id, task_train)
+            if resident is None:
+                resident = to_device(self.device, task_train.x, task_train.y)
+        self._lam.fill_(self._lambda_kd(task_id))
+        # One generator a task (a captured step binds it), reseeded each
+        # epoch: the draws are a pure function of (seed, task, epoch).
+        gen = torch.Generator(device=self.device)
         for epoch in range(start_epoch, cfg.num_epochs):
             t_epoch = time.perf_counter()
             lr = cosine_lr(cfg.lr, epoch, cfg.num_epochs)
-            clock = {"host_s": 0.0, "device_s": 0.0}
-            pending = self._run_epoch_steps(task_id, task_train, epoch, lr, lam, clock)
+            self._lr.fill_(lr)
+            gen.manual_seed(derive_seed(cfg.seed, _AUG_STREAM, task_id, epoch))
+            clock = StallClock()
+            if fused:
+                pending = self._run_epoch_fused(task_id, len(task_train), resident, epoch, gen,
+                                                clock)
+                # The fused epoch has no per-step fire site: settle the
+                # step-level clauses now that the step count is known, before
+                # the epoch-checkpoint hook, so a reconciled kill at step S
+                # resumes from the previous epoch's checkpoint, as a kill
+                # inside the epoch would.
+                if self.faults is not None:
+                    self.faults.reconcile_steps("engine.step", task=task_id, epoch=epoch + 1,
+                                                steps=len(pending))
+            else:
+                pending = self._run_epoch_steps(task_id, task_train, epoch, gen, clock)
             logger = MetricLogger(delimiter="  ")
             for m in pending:
                 logger.update(**m)
             print(f"train states: epoch :[{epoch + 1}/{cfg.num_epochs}] {logger}")
-            busy = clock["host_s"] + clock["device_s"]
             self.jsonl.log(
                 "epoch",
                 task_id=task_id,
@@ -376,9 +459,9 @@ class CilTrainer:
                 lr=lr,
                 epoch_s=round(time.perf_counter() - t_epoch, 2),
                 steps=len(pending),
-                host_s=round(clock["host_s"], 4),
-                device_s=round(clock["device_s"], 4),
-                stall_frac=round(clock["host_s"] / busy, 4) if busy > 0 else 0.0,
+                **clock.snapshot(),
+                fused=fused,
+                graphed=fused and self.epoch_fn.graphed,
                 **{k: m.global_avg for k, m in logger.meters.items()},
             )
             self._save_epoch_checkpoint(task_id, epoch + 1, nb_new)
@@ -392,45 +475,71 @@ class CilTrainer:
             if (epoch + 1) % cfg.eval_every_epoch == 0:
                 self.evaluate(dataset_val)
 
-    def _run_epoch_steps(self, task_id, task_train, epoch, lr, lam, clock) -> List[Dict]:
-        """One train step per batch; the step metrics stay on the device and
-        come back in one fetch at the end of the epoch.  ``clock`` splits the
-        epoch into host batch production and time spent in (or waiting on)
-        the device steps."""
-        cfg = self.config
-        shuffle_seed = hash((cfg.seed, task_id, epoch)) & 0x7FFFFFFF
-        gen = make_generator(self.device, cfg.seed, _AUG_STREAM, task_id, epoch)
+    def _shuffle_seed(self, task_id: int, epoch: int) -> int:
+        """The epoch's shuffle, the same on every rank and on both paths."""
+        return hash((self.config.seed, task_id, epoch)) & 0x7FFFFFFF
+
+    def _run_epoch_fused(self, task_id, n, resident, epoch, gen, clock) -> List[Dict]:
+        """The epoch through the fused epoch function on the resident
+        dataset; the table goes to the device once and the metrics come back
+        in one fetch."""
+        data_x, data_y = resident
+        with clock.host():
+            table = epoch_index_table(n, self.global_batch_size,
+                                      self._shuffle_seed(task_id, epoch))
+            table = to_device(self.device, table)[0]
+        with clock.device():
+            rows = self.epoch_fn(self.state, self.teacher, data_x, data_y, table, gen,
+                                 self._lr, self._lam)
+            host = rows.cpu().numpy()  # waits for the epoch's steps
+        self.global_step += len(host)
+        return [dict(zip(METRICS, row)) for row in host]
+
+    def _run_epoch_steps(self, task_id, task_train, epoch, gen, clock) -> List[Dict]:
+        """One train step per host batch; the step metrics stay on the
+        device and come back in one fetch at the end of the epoch.  At
+        ``--prefetch_depth > 0`` the batches are made and copied on the
+        prefetcher's thread and ``clock`` gets only the time the loop waits
+        for them."""
         rows = []
-        keys = None
-        batches = train_batches(task_train, self.global_batch_size, shuffle_seed,
-                                self.axis.rank, self.axis.size)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                break
+
+        def placed(item):
+            step_idx, (xb, yb) = item
+            # data.produce: slow_batch stalls, producer_die raises here (on
+            # the producer thread at depth > 0, which then degrades).
             if self.faults is not None:
-                # data.produce: slow_batch stalls, producer_die raises here,
-                # as on the JAX package's synchronous (depth 0) path.
                 self.faults.fire("data.produce", task=task_id, epoch=epoch + 1,
-                                 step=len(rows) + 1)
-            x, y = self._to_device(*batch)
-            t1 = time.perf_counter()
-            metrics = self.train_step(self.state, self.teacher, x, y, gen, lr, lam)
-            if keys is None:
-                keys = sorted(metrics)
-            rows.append(torch.stack([metrics[k] for k in keys]))
-            self.global_step += 1
-            # After the step's dispatch: a kill at step S keeps steps < S.
-            if self.faults is not None:
-                self.faults.fire("engine.step", task=task_id, epoch=epoch + 1,
-                                 step=len(rows))
-            clock["host_s"] += t1 - t0
-            clock["device_s"] += time.perf_counter() - t1
-        t0 = time.perf_counter()
-        host = torch.stack(rows).cpu().numpy()  # waits for the epoch's steps
-        clock["device_s"] += time.perf_counter() - t0
-        return [dict(zip(keys, row)) for row in host]
+                                 step=step_idx + 1)
+            return self._to_device(xb, yb)
+
+        source = enumerate(train_batches(task_train, self.global_batch_size,
+                                         self._shuffle_seed(task_id, epoch), self.axis.rank,
+                                         self.axis.size))
+        with self._prefetcher(source, placed, clock, "train", task_id=task_id,
+                              epoch=epoch + 1) as batches:
+            for x, y in batches:
+                with clock.device():
+                    metrics = self.train_step(self.state, self.teacher, x, y, gen,
+                                              self._lr, self._lam)
+                rows.append(torch.stack([metrics[k] for k in METRICS]))
+                self.global_step += 1
+                # After the step's dispatch: a kill at step S keeps steps < S.
+                if self.faults is not None:
+                    self.faults.fire("engine.step", task=task_id, epoch=epoch + 1,
+                                     step=len(rows))
+        with clock.device():
+            host = torch.stack(rows).cpu().numpy()  # waits for the epoch's steps
+        return [dict(zip(METRICS, row)) for row in host]
+
+    def _prefetcher(self, source, place, clock, where: str, **coords) -> DevicePrefetcher:
+        """A :class:`DevicePrefetcher` at ``--prefetch_depth`` on the
+        trainer's device; a producer death logs ``prefetch_degraded``."""
+        def degraded(exc):
+            self.jsonl.log("prefetch_degraded", where=where, error=repr(exc), **coords)
+
+        return DevicePrefetcher(source, place, self.config.prefetch_depth, clock=clock,
+                                name=f"prefetch-{where}", on_degrade=degraded,
+                                device=self.device)
 
     # ------------------------------------------------------------------ #
     # Eval
@@ -445,11 +554,12 @@ class CilTrainer:
         """``[loss_sum, correct1, correct5, n]`` over this rank's stripes of
         a val set, on device; :meth:`_sum_over_ranks` adds up the ranks'."""
         totals = None
-        for xb, yb, wb in eval_batches(dataset_val, self.global_batch_size,
-                                       self.axis.rank, self.axis.size):
-            x, y, w = self._to_device(xb, yb, wb)
-            out = self.eval_step(self.state.model, x, y, w, self.state.num_active)
-            totals = out if totals is None else totals + out
+        source = eval_batches(dataset_val, self.global_batch_size, self.axis.rank,
+                              self.axis.size)
+        with self._prefetcher(source, lambda b: self._to_device(*b), None, "eval") as batches:
+            for x, y, w in batches:
+                out = self.eval_step(self.state.model, x, y, w, self.state.num_active)
+                totals = out if totals is None else totals + out
         return totals
 
     def evaluate(self, dataset_val) -> float:
@@ -468,9 +578,74 @@ class CilTrainer:
         identical without communication."""
         gen = make_generator(self.device, self.config.seed, _HERD_STREAM, task_id)
         feats = []
-        for xb, _yb in sequential_batches(task_train, self.global_batch_size):
-            (x,) = self._to_device(xb)
-            feats.append(self.feature_step(self.state.model, x, gen))
+        source = sequential_batches(task_train, self.global_batch_size)
+        with self._prefetcher(source, lambda b: self._to_device(b[0]), None, "herd",
+                              task_id=task_id) as batches:
+            for (x,) in batches:
+                feats.append(self.feature_step(self.state.model, x, gen))
         features = torch.cat(feats).cpu().numpy()[: len(task_train)]
         self.memory.add(*task_train.get_raw_samples(), features)
 
+    # ------------------------------------------------------------------ #
+    # The next task's dataset on the warm ring
+    # ------------------------------------------------------------------ #
+
+    def _warm_next_task(self, task_id: int) -> None:
+        """Arm a depth-1 ring with the next task's fused dataset (its slice
+        plus the memory just herded), copied on the ring's producer thread
+        while the checkpoint is written and the next task is set up.  Only
+        on the fused path with ``--prefetch_depth > 0``; the per-step path
+        streams its batches through its own ring."""
+        cfg = self.config
+        nxt = task_id + 1
+        if cfg.prefetch_depth <= 0 or not cfg.fused_epochs or nxt >= len(self.scenario_train):
+            return
+        warm_train = self.scenario_train[nxt]
+        warm_train.add_samples(*self.memory.get())
+        if warm_train.x.dtype != np.uint8:
+            return
+        stride = max(1, len(warm_train.x) // 8)
+        self._task_warm = {
+            "task_id": nxt,
+            "prefetcher": DevicePrefetcher(
+                iter([(warm_train.x, warm_train.y)]), lambda b: self._to_device(*b),
+                depth=1, name=f"prefetch-taskwarm-t{nxt}", device=self.device),
+            "t0": time.perf_counter(),
+            "y": warm_train.y,
+            "x_probe": warm_train.x[::stride].copy(),
+            "probe_stride": stride,
+            "nbytes": int(warm_train.x.nbytes + warm_train.y.nbytes),
+        }
+
+    def _consume_task_warm(self, task_id: int, task_train):
+        """The warmed device dataset if it is ``task_train``'s, else None.
+        It must be armed for this task and match its labels exactly and a
+        probe of every (N/8)-th row; every outcome logs ``prefetch_warm``,
+        and a miss (or any error on the warm path) never ends the run."""
+        warm, self._task_warm = self._task_warm, None
+        if warm is None:
+            return None
+        pf = warm["prefetcher"]
+
+        def miss(reason):
+            pf.close()
+            self.jsonl.log("prefetch_warm", task_id=task_id, hit=False, reason=reason)
+
+        try:
+            if warm["task_id"] != task_id:
+                return miss(f"armed_for_task{warm['task_id']}")
+            stride = warm["probe_stride"]
+            if not (np.array_equal(warm["y"], task_train.y)
+                    and np.array_equal(warm["x_probe"], task_train.x[::stride])):
+                return miss("content_mismatch")
+            t_wait = time.perf_counter()
+            placed = next(pf, None)
+            pf.close()
+            if placed is None:
+                return miss("ring_empty")
+            self.jsonl.log("prefetch_warm", task_id=task_id, hit=True, bytes=warm["nbytes"],
+                           wait_s=round(time.perf_counter() - t_wait, 4),
+                           warm_s=round(time.perf_counter() - warm["t0"], 4))
+            return placed
+        except Exception as e:  # noqa: BLE001 - the warm path must not end a run
+            return miss(repr(e))

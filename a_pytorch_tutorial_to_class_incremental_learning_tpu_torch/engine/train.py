@@ -5,6 +5,9 @@ augment on the device -> student forward (train mode, BN running stats
 updated) -> masked CE, through the fused kernel with ``use_pallas_loss`` ->
 teacher forward (eval mode, no grad) + λ·KD -> backward -> SGD.  Step
 metrics stay on the device; the loop fetches them once per epoch.
+``make_epoch_fn`` runs an epoch of these steps on a dataset held on the
+device (JAX ``make_epoch_fn``), replaying one captured CUDA graph a step
+on CUDA at one rank.
 
 Precision: the model carries its policy (``ops/precision.py``) and casts at
 the JAX package's cast points; the logits, the losses, the parameters, the
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -41,6 +44,10 @@ from ..ops import fused_masked_cross_entropy, sharded_fused_masked_cross_entropy
 from ..ops.precision import Policy, kernel_policy_compatible
 from ..parallel.mesh import DataAxis, all_reduce_sum
 from .losses import accuracy, cross_entropy, soft_target_kd, topk_correct
+
+Scalar = Union[float, torch.Tensor]
+# The train step's metrics, in the order of the fused epoch's rows.
+METRICS = ("acc1", "acc5", "ce", "kd", "loss")
 
 
 @dataclass
@@ -73,16 +80,18 @@ def sgd_update(
     params: List[torch.Tensor],
     grads: List[torch.Tensor],
     momentum_buf: List[torch.Tensor],
-    lr: float,
+    lr: Scalar,
     momentum: float,
     weight_decay: float,
 ) -> None:
-    """torch.optim.SGD (dampening 0, no Nesterov), in place:
-    ``buf = m·buf + g + wd·p;  p -= lr·buf``, in the JAX package's order."""
+    """torch.optim.SGD (dampening 0, no Nesterov), in place, in the JAX
+    package's order: ``buf = m·buf + g + wd·p;  p = p - lr·buf``.  ``lr``
+    may be a 0-d tensor on the parameters' device (a captured step reads it
+    at each replay) or a float."""
     torch._foreach_mul_(momentum_buf, momentum)
     torch._foreach_add_(momentum_buf, grads)
     torch._foreach_add_(momentum_buf, params, alpha=weight_decay)
-    torch._foreach_add_(params, momentum_buf, alpha=-lr)
+    torch._foreach_sub_(params, torch._foreach_mul(momentum_buf, lr))
 
 
 def cosine_lr(base_lr: float, epoch: int, num_epochs: int) -> float:
@@ -108,8 +117,8 @@ def train_step_on_batch(
     teacher: Optional[Teacher],
     x: torch.Tensor,
     labels: torch.Tensor,
-    lr: float,
-    lambda_kd: float,
+    lr: Scalar,
+    lambda_kd: Scalar,
     *,
     label_smoothing: float,
     kd_temperature: float,
@@ -120,7 +129,9 @@ def train_step_on_batch(
 ) -> Dict[str, torch.Tensor]:
     """One step on an already augmented, normalized NHWC batch ``x``: this
     rank's stripe of the global batch when ``group`` is given.  The metrics
-    are the global batch's on every rank."""
+    are the global batch's on every rank.  ``lr`` and ``lambda_kd`` are 0-d
+    tensors on the model's device in the loop (floats are accepted too).
+    """
     model = state.model
     if use_pallas_loss:
         require_loss_kernel(model.policy)
@@ -187,6 +198,117 @@ def make_train_step(
         )
 
     return step
+
+
+class EpochFn:
+    """One epoch of train steps over a task's dataset held on the device;
+    built by :func:`make_epoch_fn`.  ``captures`` counts the CUDA graphs
+    captured so far."""
+
+    def __init__(self, step, axis: DataAxis, graphed: bool):
+        self._step = step
+        self._axis = axis
+        self.graphed = graphed
+        self.captures = 0
+        self._graph = None
+        self._idx = None  # the static index row the captured gather reads
+        self._out = None  # the captured step's metrics vector
+
+    def reset(self) -> None:
+        """Drop the captured step and free its memory: the next call runs
+        its first step eagerly and captures anew.  A graph replays against
+        the tensors it was captured with, so the caller resets wherever it
+        rebinds one of them (a new task's grown head and momentum, teacher,
+        dataset or generator); writing into them in place (``fill_``,
+        ``copy_``, ``manual_seed``) needs no reset."""
+        self._graph = self._out = self._idx = None
+
+    def _run_step(self, state, teacher, data_x, data_y, idx, generator, lr, lambda_kd):
+        m = self._step(state, teacher, data_x[idx], data_y[idx], generator, lr, lambda_kd)
+        return torch.stack([m[k] for k in METRICS])
+
+    def _capture(self, state, teacher, data_x, data_y, generator, lr, lambda_kd) -> None:
+        """Capture one step into a CUDA graph on the capture stream (which
+        runs nothing) and keep it for the replays."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            out = self._run_step(state, teacher, data_x, data_y, self._idx, generator, lr,
+                                 lambda_kd)
+        self._graph, self._out = graph, out
+        self.captures += 1
+
+    def __call__(self, state: TrainState, teacher: Optional[Teacher], data_x: torch.Tensor,
+                 data_y: torch.Tensor, table: torch.Tensor, generator: torch.Generator,
+                 lr: torch.Tensor, lambda_kd: torch.Tensor) -> torch.Tensor:
+        """Run ``table.shape[0]`` steps, step ``s`` on the rows
+        ``table[s]`` of ``data_x``/``data_y`` (this rank's stripe of each
+        global batch); returns the metrics ``[steps, len(METRICS)]`` on the
+        device."""
+        steps, global_b = table.shape
+        b = global_b // self._axis.size
+        cols = table[:, self._axis.rank * b:(self._axis.rank + 1) * b]
+        rows = torch.empty(steps, len(METRICS), device=data_x.device)
+        if not self.graphed:
+            for s in range(steps):
+                rows[s].copy_(self._run_step(state, teacher, data_x, data_y, cols[s], generator,
+                                             lr, lambda_kd))
+            return rows
+        start = 0
+        if self._graph is None:
+            # Step 0 runs eagerly (a real step, and the capture's warm-up) on
+            # the static index row, then the step is captured.
+            self._idx = torch.empty(b, dtype=torch.int64, device=data_x.device)
+            self._idx.copy_(cols[0])
+            rows[0].copy_(self._run_step(state, teacher, data_x, data_y, self._idx, generator,
+                                         lr, lambda_kd))
+            self._capture(state, teacher, data_x, data_y, generator, lr, lambda_kd)
+            start = 1
+        for s in range(start, steps):
+            self._idx.copy_(cols[s])
+            self._graph.replay()
+            rows[s].copy_(self._out)
+        return rows
+
+
+def make_epoch_fn(
+    aug_cfg: AugmentConfig,
+    policy: Policy,
+    label_smoothing: float,
+    kd_temperature: float,
+    momentum: float,
+    weight_decay: float,
+    use_pallas_loss: bool = False,
+    axis: Optional[DataAxis] = None,
+    device: Optional[torch.device] = None,
+) -> EpochFn:
+    """The fused epoch: counterpart of the JAX package's ``make_epoch_fn``
+    (its ``lax.scan`` over the steps of an epoch, one dispatch an epoch).
+
+    ``epoch(state, teacher, data_x, data_y, table, generator, lr,
+    lambda_kd) -> metrics [steps, len(METRICS)]``: ``data_x`` is the task's
+    uint8 ``[N, H, W, C]`` dataset and ``data_y`` its labels, both on the
+    device for the whole task; ``table`` the epoch's int64 ``[steps,
+    global_batch]`` index table on the device; ``lr`` and ``lambda_kd`` 0-d
+    f32 tensors on the device.  Each step gathers its batch on the device
+    (``data_x[idx]``) and runs the train step of :func:`make_train_step`.
+
+    On CUDA at one rank the step is captured as a CUDA graph and replayed
+    once a step: the first step after :meth:`EpochFn.reset` (or after the
+    function is made) runs eagerly and is followed by the capture; every
+    other step is a replay that reads its index row from a static buffer.
+    The replays read and write the tensors of the capture, so the caller
+    resets the function whenever it passes other ones (the loop does at
+    the start of each task).  ``generator`` is registered with the graph,
+    so reseeding it between epochs reseeds the replays.
+    On the CPU, and at more than one rank (gloo's collectives cannot be
+    captured), the same steps run eagerly.  The choice is made here, from
+    the device and the rank count."""
+    axis = axis or DataAxis()
+    device = device or torch.device("cpu")
+    step = make_train_step(aug_cfg, policy, label_smoothing, kd_temperature, momentum,
+                           weight_decay, use_pallas_loss, axis)
+    return EpochFn(step, axis, graphed=device.type == "cuda" and axis.size == 1)
 
 
 def make_eval_step(aug_cfg: AugmentConfig):

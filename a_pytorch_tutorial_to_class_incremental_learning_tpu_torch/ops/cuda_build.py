@@ -44,13 +44,13 @@ SIGNATURES = {
         "fused_ce_rows_per_block": (_I, []),
         "fused_ce_error_string": (ctypes.c_char_p, [_I]),
         # device, x, dtype, B, W, stride, labels, num_active, smoothing, scale,
-        # per, lse, partials, ticket, out, stream
+        # per, lse, partials, ticket, out, launches, stream
         "fused_ce_fwd_launch": (_I, [_I, _P, _I, _LL, _I, _LL, _P, _P, _F, _F,
-                                     _P, _P, _P, _P, _P, _P]),
+                                     _P, _P, _P, _P, _P, _P, _P]),
         # device, x, dtype, B, W, stride, labels, num_active, lse, grad,
-        # smoothing, scale, dx, dx_stride, stream
+        # smoothing, scale, dx, dx_stride, launches, stream
         "fused_ce_bwd_launch": (_I, [_I, _P, _I, _LL, _I, _LL, _P, _P, _P, _P,
-                                     _F, _F, _P, _LL, _P]),
+                                     _F, _F, _P, _LL, _P, _P]),
         "fused_ce_empty_launch": (_I, [_I, _P]),
     },
 }

@@ -22,8 +22,14 @@ data-parallel form (JAX ``sharded_fused_masked_cross_entropy``,
 ``fused_loss.py:191-224``): the same kernels on each rank's batch stripe
 with ``scale = 1/(B·N)``, plus one scalar all-reduce.
 
-``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count kernel launches (never plain-version
-calls), so a run can show that its train steps went through the kernels.
+Two counts show that a run's train steps went through the kernels (plain
+versions count in neither).  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` count the
+wrappers' kernel launches on the host.  The kernels also count themselves:
+each run on the card adds 1 to a counter in device memory
+(:func:`device_launches`).  The two differ under a CUDA graph: a step
+captured by the fused epoch (``engine/train.py``) calls the wrappers once,
+at the capture, and its kernels then run at every replay.
+:func:`reset_launches` zeroes both.
 
 The kernels read f32 or bf16 logits and accumulate in f32 (the
 ``LOSS_DTYPE`` contract of ``ops/precision.py``); the models hand them f32
@@ -47,6 +53,7 @@ BWD_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/fused_ce.cu's DType
 _TICKETS = {}  # device index -> the forward's zeroed ticket
+_COUNTERS = {}  # device index -> int64 [2]: the kernels' own counts (forward, backward)
 
 
 def _check(logits: torch.Tensor, labels: torch.Tensor, num_active: torch.Tensor) -> None:
@@ -111,9 +118,41 @@ def fused_ce_bwd_plain(
 # --------------------------------------------------------------------------- #
 
 
+def _counter(device: torch.device) -> torch.Tensor:
+    """The device's two launch counters, which the kernels increment."""
+    c = _COUNTERS.get(device.index)
+    if c is None:
+        c = _COUNTERS[device.index] = torch.zeros(2, dtype=torch.int64, device=device)
+    return c
+
+
+def device_launches() -> Tuple[int, int]:
+    """``(forward, backward)``: how often the kernels ran on the cards of
+    this process since the last :func:`reset_launches`, as the kernels
+    counted themselves (waits for the work queued on them)."""
+    fwd = bwd = 0
+    for c in _COUNTERS.values():
+        f, b = c.tolist()
+        fwd, bwd = fwd + f, bwd + b
+    return fwd, bwd
+
+
+def reset_launches() -> None:
+    """Zero the wrappers' counts and the kernels' own.  The device counters
+    are zeroed in place: a captured graph goes on counting into them."""
+    global FWD_LAUNCHES, BWD_LAUNCHES
+    FWD_LAUNCHES = BWD_LAUNCHES = 0
+    for c in _COUNTERS.values():
+        c.zero_()
+
+
 def _ticket(device: torch.device) -> torch.Tensor:
     """The device's ticket: one zeroed counter that every forward launch
-    takes and leaves at 0 again.  Launches on one stream run in turn."""
+    takes and leaves at 0 again.  Launches on one stream run in turn, so
+    every forward goes to the stream that is current: the trainer's for an
+    eager step and for a graph's replays, the capture stream while a graph
+    is captured (which runs nothing).  No loss launch goes to a prefetch
+    stream: those streams only copy."""
     t = _TICKETS.get(device.index)
     if t is None:
         t = _TICKETS[device.index] = torch.zeros(1, dtype=torch.int32, device=device)
@@ -154,7 +193,7 @@ def fused_ce_fwd(
         dev.index, logits.data_ptr(), _DTYPE_CODES[logits.dtype], b, w, logits.stride(0),
         labels.data_ptr(), num_active.data_ptr(), smoothing, scale, per.data_ptr(),
         lse.data_ptr(), partials.data_ptr(), _ticket(dev).data_ptr(), out.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(dev.index),
+        _counter(dev).data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index),
     )
     _raise_if(err, lib, "fused_ce_fwd")
     FWD_LAUNCHES += 1
@@ -185,7 +224,7 @@ def fused_ce_bwd(
     err = lib.fused_ce_bwd_launch(
         dev.index, logits.data_ptr(), _DTYPE_CODES[logits.dtype], b, w, logits.stride(0),
         labels.data_ptr(), num_active.data_ptr(), lse.contiguous().data_ptr(), g.data_ptr(),
-        smoothing, scale, dx.data_ptr(), dx.stride(0),
+        smoothing, scale, dx.data_ptr(), dx.stride(0), _counter(dev)[1:].data_ptr(),
         torch._C._cuda_getCurrentRawStream(dev.index),
     )
     _raise_if(err, lib, "fused_ce_bwd")

@@ -1,4 +1,5 @@
-"""Continual-learning metrics for the ``cil_metrics`` and ``final`` records."""
+"""Continual-learning metrics for the ``cil_metrics`` and ``final`` records,
+and the epoch records' stall clock."""
 
 from .cil_metrics import (  # noqa: F401
     AccuracyMatrix,
@@ -6,3 +7,4 @@ from .cil_metrics import (  # noqa: F401
     backward_transfer,
     per_task_forgetting,
 )
+from .counters import StallClock  # noqa: F401

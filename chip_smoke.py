@@ -4,8 +4,9 @@
     python3 chip_smoke.py                  # every phase, on one card
     python3 chip_smoke.py launch2 <flags>  # the CLI at 2 data-parallel ranks
     python3 chip_smoke.py race <log.jsonl> [--init_state <state.pt>] <flags>
-                                           # a race run, timed (optionally
-                                           # from given task-0 weights)
+                                           # a race run under deterministic
+                                           # cuDNN, timed (optionally from
+                                           # given task-0 weights)
     python3 chip_smoke.py durable <out.pt> <flags>
                                            # one CLI run under deterministic
                                            # cuDNN (the durability phase's
@@ -46,13 +47,22 @@ Phases, in order; any failure exits non-zero before the result lines:
    ms are printed.
 3. The main path: the CLI's trainer on the race recipe at full width
    (``synthetic_hard128``, resnet32, 100-wide head, batch 128, B50-inc10, 6
-   tasks) with the parser's default augmentation (RandAugment
-   ``rand-m9-mstd0.5-inc1``) cut to 2 epochs a task, with
-   ``--use_pallas_loss``.  Every parameter must live on the card, every loss
-   be finite, each CUDA kernel be launched once per train step and no
-   Triton kernel at all, the records come in the CLI's order, and the
-   trained model's eval forward on the card agree with the same model on
-   the CPU.
+   tasks) with the parser's defaults (RandAugment ``rand-m9-mstd0.5-inc1``
+   and the fused epoch: the task's dataset on the card, the batches
+   gathered there, each step a replay of a CUDA graph captured once a
+   task) cut to 2 epochs a task, with ``--use_pallas_loss``.  Every
+   parameter must live on the card, every loss be finite, every epoch
+   record say ``fused`` and ``graphed``, 6 graphs be captured, each CUDA
+   kernel run once per train step on the card (as the kernels count
+   themselves, in device memory, every replay included; the wrappers are
+   called twice a task, for the eager first step and the capture; over one
+   replayed epoch ``torch.profiler`` must see one forward and one backward
+   kernel a step, as many as the kernels counted) and no Triton kernel at
+   all, the records come
+   in the CLI's order, and the trained model's eval forward on the card
+   agree with the same model on the CPU.  The median step (and that of the
+   replay-only epochs), the profiled epoch's kernels a step and the card's
+   busy share are printed.
    Then the precision presets: for each of f32, bf16_all and
    bf16_selective, 30 train steps at full width (resnet32, 100-wide head,
    B=128, a teacher, RandAugment, the CUDA kernels): the median step ms,
@@ -60,6 +70,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    parameters, momentum and BN statistics, conv outputs in the preset's
    compute dtype and BatchNorm inputs in its activation dtype; then the main
    path again under ``--precision bf16_selective``, 1 epoch a task.
+   Then the fused phase: the main path's recipe under deterministic cuDNN,
+   (a) fused and graphed, (b) ``--no_fused_epochs``, (c) ``--no_fused_epochs
+   --prefetch_depth 2``, (d) fused with ``--prefetch_depth 1``: all four
+   must end bitwise equal (every ``state_dict`` tensor, acc1s, γ, the
+   matrix), (a) and (d) capture 6 graphs, (d) logs 5 ``prefetch_warm``
+   hits; each run's median step, fit wall and captures are printed.
 4. Data parallel: two ranks started with ``torch.multiprocessing``, on
    ``nccl`` with a card each where there are two cards, else on ``gloo``
    with both ranks on the one card (NCCL refuses two ranks on one device).
@@ -73,19 +89,20 @@ Phases, in order; any failure exits non-zero before the result lines:
    parameters and buffers
    rtol 1e-3 / atol 1e-4, since cuDNN's backward is not deterministic;
    the momentum, the raw gradient, is reported against a float64 step),
-   the ranks must end bitwise equal, and each rank must
-   launch each kernel once per step.  Then the sharded loss on a (64, 100,
+   the ranks must end bitwise equal, and on each rank each kernel must run
+   once per step.  Then the sharded loss on a (64, 100,
    50) stripe against its plain version over the 128 rows, its times, and
    its kernel count per round (2 besides the collective's own copies or
    kernels: a hard check).
    (b) Protocol: the race recipe at 2 ranks x 64 rows, 1 epoch a task, 6
-   tasks, through the CLI's trainer: the record sequence, finite losses,
-   γ > 0 after task 0, kernel launches per rank equal to the train steps,
+   tasks, through the CLI's trainer on the fused epoch, run eagerly (gloo's
+   collectives cannot be captured): the record sequence, finite losses,
+   γ > 0 after task 0, kernel runs per rank equal to the train steps,
    and the same memory on both ranks.
 5. Durability: the main path's recipe (``synthetic_hard128``, resnet32,
    100-wide head, batch 128, B50-inc10, 6 tasks, memory 256, RandAugment,
-   the CUDA kernels) at 2 epochs a task with ``--epoch_ckpt_every 1``, in
-   three legs.  (a) Twin: one uninterrupted CLI child.  (b) Chaos: the same
+   the CUDA kernels, the fused and graphed epoch) at 2 epochs a task with
+   ``--epoch_ckpt_every 1``, in three legs.  (a) Twin: one uninterrupted CLI child.  (b) Chaos: the same
    flags plus ``--fault_spec kill@task2.epoch1`` under
    ``scripts/supervise.py``: the child dies by SIGKILL right after
    ``task_002_epoch_001.ckpt`` lands, the supervisor relaunches it with
@@ -95,15 +112,16 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``durable`` launcher, not by a flag of the port.  (b) must equal (a)
    bitwise: acc1s, the accuracy matrix, γ at every alignment and the final
    ``state_dict``; its log must be the twin's plus ``fault_injected`` and
-   the relaunch's ``run`` and ``resume``; the resumed child must launch
-   each CUDA kernel once per train step it runs.  (c) Round trip, in this
+   the relaunch's ``run`` and ``resume``; in the resumed child each CUDA
+   kernel must run once per train step it runs.  (c) Round trip, in this
    process: an epoch checkpoint (task 1, epoch 1: momentum, teacher, memory)
    and a task checkpoint are saved and restored into a new trainer, and
    every state tensor, the memory and the counters must come back bitwise.
    Each leg's wall time, the payload bytes and the save and restore times
    are printed beside the card.
 6. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
-   line, a ``{"durability": ...}`` line, the card's name and power limit, a
+   line, a ``{"durability": ...}`` line, a ``{"fused": ..., "main_path":
+   ...}`` line, the card's name and power limit, a
    ``{"kernels": [...]}`` line, then the card line ``{"ok": true,
    "device": {...}}`` last.
 
@@ -162,6 +180,10 @@ AUG_SEED = 100             # parity step i augments with a generator seeded AUG_
 AUG_B = 128                # the augment phase's batch (the train step's)
 INTEGER_OPS = (1, 2, 4, 5, 6)  # Equalize, Invert, Posterize, Solarize, SolarizeAdd
 PRECISION_STEPS = 30
+# The fused phase's four runs of the main path's recipe.
+FUSED_RUNS = {"fused": [], "per_step": ["--no_fused_epochs"],
+              "per_step_prefetch2": ["--no_fused_epochs", "--prefetch_depth", "2"],
+              "fused_prefetch1": ["--prefetch_depth", "1"]}
 
 
 CARD = ""  # the card's name and power limit (nvidia-smi), printed beside every time
@@ -328,12 +350,15 @@ def phase_kernels(torch):
                 main = dtype == torch.float32 and (b, w, active) == MAIN_SHAPE
 
                 launches = (fl.FWD_LAUNCHES, fl.BWD_LAUNCHES)
+                ran = fl.device_launches()
                 per, lse, out = fl.fused_ce_fwd(x, y, na, s, scale)
                 torch.cuda.synchronize()
                 dx = fl.fused_ce_bwd(x, y, na, lse, g, s, scale)
                 torch.cuda.synchronize()
                 check((fl.FWD_LAUNCHES, fl.BWD_LAUNCHES) == (launches[0] + 1, launches[1] + 1),
                       "a CUDA call did not launch its kernel")
+                check(fl.device_launches() == (ran[0] + 1, ran[1] + 1),
+                      f"a CUDA kernel did not count its run: {ran} -> {fl.device_launches()}")
                 diffs = {"fwd": max(_agree(torch, per, ref_per, tol, f"fused_ce_fwd per at {case}"),
                                     _agree(torch, lse, ref_lse, tol, f"fused_ce_fwd lse at {case}"),
                                     _agree(torch, out, ref_out, tol, f"fused_ce_fwd out at {case}")),
@@ -407,7 +432,6 @@ def _host_us(torch, fn, n=100, reps=5):
 def _profile(torch, fn, n=100):
     """Device activity of ``n`` calls of ``fn`` (after one warm-up call) from
     ``torch.profiler``: {kernel or copy name: [count, device µs]}."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -416,13 +440,7 @@ def _profile(torch, fn, n=100):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            entry = out.setdefault(evt.name, [0, 0.0])
-            entry[0] += 1
-            entry[1] += evt.time_range.elapsed_us()
-    return out
+    return _count_kernels(prof)
 
 
 def _profiled_ms(torch, fn, kernel: str, n=100):
@@ -601,6 +619,75 @@ def phase_timing(torch):
 # --------------------------------------------------------------------------- #
 
 
+def _counts(fl) -> dict:
+    """The fused-CE counts since ``fl.reset_launches()``: ``ran``, how often
+    each kernel ran on the card as the kernels count themselves (every
+    replay of a captured step included), and ``calls``, the wrappers'
+    launches on the host (a captured step calls them once, at its
+    capture)."""
+    return {"ran": list(fl.device_launches()), "calls": [fl.FWD_LAUNCHES, fl.BWD_LAUNCHES]}
+
+
+def _check_counts(what: str, counts: dict, steps: int, captures: int) -> None:
+    """Each kernel ran once a train step on the card.  The wrappers were
+    called once a step, but on the graphed path once for each task's eager
+    first step and once at its capture."""
+    calls = 2 * captures if captures else steps
+    check(steps > 0 and counts["ran"] == [steps, steps] and counts["calls"] == [calls, calls],
+          f"{what}: the fused-CE kernels ran {counts['ran']} times (wrapper calls "
+          f"{counts['calls']}) for {steps} train steps and {captures} graph captures")
+
+
+def _count_kernels(prof) -> dict:
+    """{kernel name: [count, device µs]} of a profile's device events."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            entry = out.setdefault(evt.name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += evt.time_range.elapsed_us()
+    return out
+
+
+def _profile_epoch(torch, trainer, task_id, epoch):
+    """Wrap the trainer's fused epoch so that epoch ``epoch`` of task
+    ``task_id`` runs under ``torch.profiler``; the returned dict gets that
+    epoch's kernels (``{name: [count, device µs]}``), its steps, its
+    synchronized wall ms and the fused-CE kernels' own counts of their runs
+    in it (``ran``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+
+    seen = {}
+    run = trainer._run_epoch_fused
+
+    def profiled(t, n, resident, e, gen, clock):
+        if (t, e) != (task_id, epoch):
+            return run(t, n, resident, e, gen, clock)
+        ran = fl.device_launches()  # waits for the queued work
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rows = run(t, n, resident, e, gen, clock)
+            torch.cuda.synchronize()
+            seen["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        seen["ran"] = [b - a for a, b in zip(ran, fl.device_launches())]
+        seen["kernels"] = _count_kernels(prof)
+        seen["steps"] = len(rows)
+        return rows
+
+    trainer._run_epoch_fused = profiled
+    return seen
+
+
+def _named(kernels: dict, name: str):
+    """Count and device µs of the kernels whose name holds ``name``."""
+    hits = [v for k, v in kernels.items() if name in k]
+    return sum(c for c, _ in hits), sum(us for _, us in hits)
+
+
 def phase_main_path(torch):
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
@@ -616,25 +703,31 @@ def phase_main_path(torch):
         ])
         check(trainer.aug_cfg.rand_augment and trainer.aug_cfg.ra_num_ops == 2,
               f"the main path does not run the parser's RandAugment: {trainer.aug_cfg}")
+        check(trainer.config.fused_epochs and trainer.epoch_fn.graphed,
+              "the parser's defaults do not run the fused, graphed epoch")
         model = trainer.state.model
         check(model.fc.weight.shape == (100, 64), "the head is not 100 wide")
         off = [n for n, p in model.named_parameters() if p.device.type != "cuda"]
         off += [n for n, t in model.named_buffers() if t.device.type != "cuda"]
         check(not off, f"tensors off the card: {off[:5]}")
+        # Task 1's second epoch: every step a replay of task 1's graph.
+        profiled = _profile_epoch(torch, trainer, 1, 1)
 
-        fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = tfl.FWD_LAUNCHES = tfl.BWD_LAUNCHES = 0
         torch.cuda.synchronize()
+        fl.reset_launches()
+        tfl.FWD_LAUNCHES = tfl.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
         result = trainer.fit()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = {"fwd": fl.FWD_LAUNCHES, "bwd": fl.BWD_LAUNCHES,
+        counts = _counts(fl)
+        launches = {"fwd": counts["ran"][0], "bwd": counts["ran"][1], "calls": counts["calls"],
                     "triton_fwd": tfl.FWD_LAUNCHES, "triton_bwd": tfl.BWD_LAUNCHES}
         records = [json.loads(ln) for ln in open(log)]
 
     steps = trainer.global_step
-    check(steps > 0 and launches["fwd"] == launches["bwd"] == steps,
-          f"kernel launches {launches} != train steps {steps}")
+    # Counted where the kernels run: every replay of a captured step.
+    _check_counts("main path", counts, steps, trainer.epoch_fn.captures)
     check(launches["triton_fwd"] == launches["triton_bwd"] == 0,
           f"the main path launched Triton kernels: {launches}")
     types = [r["type"] for r in records]
@@ -642,10 +735,23 @@ def phase_main_path(torch):
     want = ["run"] + (["epoch"] * epochs + ["task", "cil_metrics"]) * nb_tasks + ["final"]
     check(nb_tasks == 6 and types == want, f"record sequence {types}")
     epochs_rec = [r for r in records if r["type"] == "epoch"]
+    check(all(r["fused"] is True and r["graphed"] is True for r in epochs_rec),
+          "the main path's epochs are not fused and graphed")
+    check(trainer.epoch_fn.captures == nb_tasks,
+          f"{trainer.epoch_fn.captures} graph captures for {nb_tasks} tasks")
     check(sum(r["steps"] for r in epochs_rec) == steps, "epoch records miss steps")
     for r in epochs_rec:
         check(all(math.isfinite(r[k]) for k in ("loss", "ce", "kd", "acc1")),
               f"non-finite metrics in {r}")
+    # The kernels on the card, counted by the profiler over one replayed
+    # epoch: one forward and one backward a step.
+    fwd_n, fwd_us = _named(profiled["kernels"], "fused_ce_fwd_sm90")
+    bwd_n, bwd_us = _named(profiled["kernels"], "fused_ce_bwd_sm90")
+    check(fwd_n == bwd_n == profiled["steps"] > 0 and profiled["ran"] == [fwd_n, bwd_n],
+          f"the profiler saw {fwd_n} forward and {bwd_n} backward kernels in an epoch of "
+          f"{profiled['steps']} replayed steps, the kernels counted {profiled['ran']}")
+    busy_us = sum(us for _, us in profiled["kernels"].values())
+    kernels_per_step = sum(c for c, _ in profiled["kernels"].values()) / profiled["steps"]
     tasks = [r for r in records if r["type"] == "task"]
     check(tasks[0]["gamma"] is None and all(t["gamma"] > 0 for t in tasks[1:]),
           "weight alignment gammas")
@@ -666,14 +772,39 @@ def phase_main_path(torch):
     check(torch.allclose(got.cpu(), ref, rtol=1e-3, atol=1e-3),
           f"card vs CPU eval logits differ by {(got.cpu() - ref).abs().max().item()}")
 
-    step_ms = statistics.median(
-        1e3 * (r["host_s"] + r["device_s"]) / r["steps"] for r in epochs_rec
-    )
-    print(f"[main] {steps} train steps in {nb_tasks} tasks, {wall_s:.1f} s wall; "
-          f"median step {step_ms:.3f} ms [{CARD}]; launches {launches}")
-    launches["step_ms"] = step_ms
+    # The median over the epochs the profiler did not slow.
+    unprofiled = [r for r in epochs_rec if (r["task_id"], r["epoch"]) != (1, 2)]
+    step_ms = _step_ms(unprofiled)
+    replay_ms = _step_ms(r for r in unprofiled if r["epoch"] == 2)
+    # Where a replayed step's device time goes: the kernels by total time.
+    top = sorted(profiled["kernels"].items(), key=lambda kv: -kv[1][1])[:8]
+    top = [(name[:70], count / profiled["steps"], us / 1e3 / profiled["steps"])
+           for name, (count, us) in top]
+    print(f"[main] {steps} train steps in {nb_tasks} tasks, fused and graphed "
+          f"({trainer.epoch_fn.captures} captures), {wall_s:.1f} s wall; median step "
+          f"{step_ms:.3f} ms, {replay_ms:.3f} ms in the replay-only epochs [{CARD}]; "
+          f"fused-CE kernels ran {counts['ran']} times on the card, wrapper calls "
+          f"{counts['calls']}")
+    print(f"[main] profiler over task 1 epoch 2 ({profiled['steps']} replayed steps, "
+          f"{profiled['wall_ms']:.1f} ms synchronized wall): fused_ce_fwd_sm90 x{fwd_n} "
+          f"({fwd_us / max(fwd_n, 1) / 1e3:.7f} ms each), fused_ce_bwd_sm90 x{bwd_n} "
+          f"({bwd_us / max(bwd_n, 1) / 1e3:.7f} ms each); {kernels_per_step:.1f} kernels "
+          f"a step, device busy {busy_us / 1e3 / profiled['steps']:.3f} ms a step, "
+          f"{100 * busy_us / 1e3 / profiled['wall_ms']:.1f}% of the wall [{CARD}]")
+    for name, per_step, ms in top:
+        print(f"[main]   {ms:.4f} ms a step in {per_step:g} launches of {name}")
     print(f"[main] acc1 per task: {[round(a, 3) for a in result['acc1s']]}")
     print(f"[main] gammas: {[t['gamma'] for t in tasks]}")
+    launches.update(step_ms=step_ms, replay_step_ms=replay_ms, fit_s=wall_s,
+                    captures=trainer.epoch_fn.captures,
+                    profiled={"steps": profiled["steps"], "wall_ms": profiled["wall_ms"],
+                              "fwd": fwd_n, "bwd": bwd_n,
+                              "fwd_device_ms": fwd_us / max(fwd_n, 1) / 1e3,
+                              "bwd_device_ms": bwd_us / max(bwd_n, 1) / 1e3,
+                              "kernels_per_step": kernels_per_step,
+                              "busy_ms_per_step": busy_us / 1e3 / profiled["steps"],
+                              "busy_share": busy_us / 1e3 / profiled["wall_ms"],
+                              "top_kernels": top})
     return launches
 
 
@@ -808,7 +939,8 @@ def phase_precision(torch):
         step = tt.make_train_step(AugmentConfig(), policy, 0.0, 2.0, 0.9, 5e-4,
                                   use_pallas_loss=True)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = 0
+        torch.cuda.synchronize()
+        fl.reset_launches()
         times, losses = [], []
         for i in range(PRECISION_STEPS):
             torch.cuda.synchronize()
@@ -818,11 +950,10 @@ def phase_precision(torch):
             times.append(1e3 * (time.perf_counter() - t0))
             losses.append(m["loss"])
         losses = torch.stack(losses).cpu()
-        launches = (fl.FWD_LAUNCHES, fl.BWD_LAUNCHES)
+        counts = _counts(fl)
+        launches = tuple(counts["ran"])
         check(bool(torch.isfinite(losses).all()), f"{preset}: non-finite loss {losses}")
-        check(launches == (PRECISION_STEPS, PRECISION_STEPS),
-              f"{preset}: fused-CE launches {launches} for {PRECISION_STEPS} steps "
-              "(want a forward and a backward a step)")
+        _check_counts(preset, counts, PRECISION_STEPS, 0)
         # The dtype contract, on one more (untimed) step with hooks.
         seen = {"conv": set(), "bn_in": set()}
 
@@ -867,30 +998,121 @@ def phase_precision(torch):
         log = os.path.join(tmp, "bf16.jsonl")
         trainer = build_trainer([*RACE_ARGV, "--batch_size", "128", "--num_epochs", "1",
                                  "--precision", "bf16_selective", "--log_file", log])
-        fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = 0
         torch.cuda.synchronize()
+        fl.reset_launches()
         t0 = time.perf_counter()
         result = trainer.fit()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         records = [json.loads(ln) for ln in open(log)]
     steps = trainer.global_step
+    counts = _counts(fl)
     types = [r["type"] for r in records]
     check(types == ["run"] + ["epoch", "task", "cil_metrics"] * 6 + ["final"],
           f"bf16_selective run: record sequence {types}")
     check(records[0]["precision"] == "bf16_selective", f"run record {records[0]}")
-    check(steps > 0 and fl.FWD_LAUNCHES == fl.BWD_LAUNCHES == steps,
-          f"bf16_selective run: launches {fl.FWD_LAUNCHES}/{fl.BWD_LAUNCHES} != {steps} steps")
+    _check_counts("bf16_selective run", counts, steps, trainer.epoch_fn.captures)
     epochs = [r for r in records if r["type"] == "epoch"]
     check(all(math.isfinite(r[k]) for r in epochs for k in ("loss", "ce", "kd")),
           "bf16_selective run: non-finite metrics")
-    step_ms = statistics.median(1e3 * (r["host_s"] + r["device_s"]) / r["steps"] for r in epochs)
+    step_ms = _step_ms(epochs)
     out["main_bf16_selective"] = {"steps": steps, "wall_s": wall_s, "step_ms": step_ms,
                                   "acc1s": result["acc1s"]}
     print(f"[precision] main path --precision bf16_selective, 1 epoch a task: {steps} steps, "
           f"{wall_s:.1f} s, median step {step_ms:.3f} ms [{CARD}]; acc1 per task "
           f"{[round(a, 3) for a in result['acc1s']]}")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# The fused epoch against the per-step loop
+# --------------------------------------------------------------------------- #
+
+
+def _step_ms(epochs) -> float:
+    """The median train step in ms over epoch records (host clock)."""
+    return statistics.median(1e3 * (r["host_s"] + r["device_s"]) / r["steps"] for r in epochs)
+
+
+def _deterministic_cudnn(torch, on: bool) -> None:
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def phase_fused(torch):
+    """The main path's recipe under deterministic cuDNN, four ways: (a) the
+    fused, graphed epoch, (b) ``--no_fused_epochs``, (c) ``--no_fused_epochs
+    --prefetch_depth 2``, (d) fused with ``--prefetch_depth 1`` (the warm
+    ring); all four must end bitwise equal."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+
+    runs = {}
+    _deterministic_cudnn(torch, True)
+    try:
+        for name, flags in FUSED_RUNS.items():
+            with tempfile.TemporaryDirectory() as tmp:
+                log = os.path.join(tmp, "run.jsonl")
+                trainer = build_trainer([*RACE_ARGV, "--batch_size", "128", "--num_epochs",
+                                         "2", *flags, "--log_file", log])
+                torch.cuda.synchronize()
+                fl.reset_launches()
+                t0 = time.perf_counter()
+                result = trainer.fit()
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                records = [json.loads(ln) for ln in open(log)]
+            epochs = [r for r in records if r["type"] == "epoch"]
+            runs[name] = {
+                "result": result, "wall_s": wall_s, "steps": trainer.global_step,
+                "counts": _counts(fl),
+                "captures": trainer.epoch_fn.captures,
+                "fused": sorted({r["fused"] for r in epochs}),
+                "graphed": sorted({r["graphed"] for r in epochs}),
+                "gammas": [r["gamma"] for r in records if r["type"] == "task"],
+                "warm_hits": sum(1 for r in records if r["type"] == "prefetch_warm"
+                                 and r["hit"]),
+                "step_ms": _step_ms(epochs),
+                # Each task's first epoch carries its capture (or, per step,
+                # nothing extra); the later epochs are replays only.
+                "first_epoch_step_ms": _step_ms(r for r in epochs if r["epoch"] == 1),
+                "later_epoch_step_ms": _step_ms(r for r in epochs if r["epoch"] > 1),
+                "state": {k: v.detach().cpu().clone()
+                          for k, v in trainer.state.model.state_dict().items()},
+            }
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        _deterministic_cudnn(torch, False)
+
+    ref = runs["fused"]
+    want = {"fused": ([True], [True], 6), "per_step": ([False], [False], 0),
+            "per_step_prefetch2": ([False], [False], 0), "fused_prefetch1": ([True], [True], 6)}
+    for name, run in runs.items():
+        fused, graphed, captures = want[name]
+        check(run["fused"] == fused and run["graphed"] == graphed and run["captures"] == captures,
+              f"{name}: fused {run['fused']}, graphed {run['graphed']}, captures "
+              f"{run['captures']}")
+        _check_counts(name, run["counts"], run["steps"], run["captures"])
+        same = (run["result"]["acc1s"] == ref["result"]["acc1s"]
+                and run["result"]["acc_matrix"] == ref["result"]["acc_matrix"]
+                and run["gammas"] == ref["gammas"] and run["steps"] == ref["steps"]
+                and _state_equal(torch, run["state"], ref["state"]))
+        check(same, f"{name} is not bitwise the fused run: acc1s {run['result']['acc1s']} vs "
+                    f"{ref['result']['acc1s']}, state delta "
+                    f"{_state_delta(torch, run['state'], ref['state'])[0]:.3g}")
+    check(runs["fused_prefetch1"]["warm_hits"] == 5,
+          f"{runs['fused_prefetch1']['warm_hits']} prefetch_warm hits (want 5)")
+    for name, run in runs.items():
+        print(f"[fused] {name}: median step {run['step_ms']:.3f} ms (first epochs "
+              f"{run['first_epoch_step_ms']:.3f}, later epochs {run['later_epoch_step_ms']:.3f}), "
+              f"fit {run['wall_s']:.2f} s, {run['captures']} graph captures, {run['steps']} "
+              f"steps, kernels ran {run['counts']['ran']} (wrapper calls "
+              f"{run['counts']['calls']}), warm hits {run['warm_hits']} [{CARD}]")
+    print(f"[fused] all four runs bitwise equal under deterministic cuDNN (every state_dict "
+          f"tensor, acc1s, gamma, the matrix); acc1s {[round(a, 3) for a in ref['result']['acc1s']]}")
+    return {name: {k: v for k, v in run.items() if k not in ("state", "result")}
+            for name, run in runs.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -998,7 +1220,7 @@ def _job_step(torch, rank, out_dir, argv):
                           _count(torch, 0))
     teacher = None
     out = {"before": [], "after": [], "loss": []}
-    fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = 0
+    fl.reset_launches()
     for i in range(DP_STEPS):
         if i == DP_STEPS // 2:  # task 1: teacher snapshot, head growth, fresh SGD
             teacher = tt.Teacher(copy.deepcopy(model).requires_grad_(False), _count(torch, 50))
@@ -1013,7 +1235,7 @@ def _job_step(torch, rank, out_dir, argv):
         if rank == 0:
             out["after"].append(_snapshot(state))
     torch.cuda.synchronize()
-    out["launches"] = [fl.FWD_LAUNCHES, fl.BWD_LAUNCHES]
+    out["counts"] = _counts(fl)
     out["final"] = torch.cat([t.detach().reshape(-1).cpu() for t in
                               list(model.parameters()) + list(model.buffers()) + state.momentum])
     out["sharded"] = _sharded_stripe(torch, dist, fl, axis)
@@ -1091,14 +1313,15 @@ def _job_protocol(torch, rank, out_dir, argv):
         *RACE_ARGV, "--batch_size", str(DP_STRIPE[0]), "--num_epochs", "1",
         "--mesh_data", str(DP_RANKS), "--log_file", os.path.join(out_dir, "dp.jsonl"),
     ])
-    fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = 0
     torch.cuda.synchronize()
+    fl.reset_launches()
     t0 = time.perf_counter()
     result = trainer.fit()
     torch.cuda.synchronize()
     mx, my = trainer.memory.get()[:2]
     return {
-        "launches": [fl.FWD_LAUNCHES, fl.BWD_LAUNCHES], "steps": trainer.global_step,
+        "counts": _counts(fl), "steps": trainer.global_step,
+        "captures": trainer.epoch_fn.captures,
         "wall_s": time.perf_counter() - t0, "acc1s": result["acc1s"],
         "device": str(trainer.device),
         "memory": hashlib.sha256(mx.tobytes() + my.tobytes()).hexdigest(),
@@ -1239,15 +1462,14 @@ def phase_data_parallel(torch):
 
     # (a) Step parity.
     for r, out in enumerate(step):
-        check(out["launches"] == [DP_STEPS, DP_STEPS],
-              f"rank {r}: kernel launches {out['launches']} != {DP_STEPS} steps")
+        _check_counts(f"rank {r}'s steps", out["counts"], DP_STEPS, 0)
     check(torch.equal(step[0]["final"], step[1]["final"]),
           "the ranks' parameters, buffers and momentum are not bitwise equal")
     worst = _reference_steps(torch, step)
     print(f"[dp] step parity: {DP_STEPS} steps at {DP_RANKS} x {DP_STRIPE[0]} rows vs 1 x "
           f"{DP_STRIPE[0] * DP_RANKS}: max loss rel diff {worst['loss_rel']:.3g}, "
           f"max state abs diff {worst['state_abs']:.3g}; ranks bitwise equal; "
-          f"launches {step[0]['launches']} / {step[1]['launches']}")
+          f"kernels ran {step[0]['counts']['ran']} / {step[1]['counts']['ran']}")
     print(f"[dp] momentum (the raw gradient) against a float64 step, largest relative "
           f"norm of the difference: 2-rank {worst['momentum_rel_dp']:.3g}, 1-rank "
           f"{worst['momentum_rel_1rank']:.3g}")
@@ -1281,22 +1503,23 @@ def phase_data_parallel(torch):
     for x in epochs:
         check(all(math.isfinite(x[k]) for k in ("loss", "ce", "kd", "acc1")),
               f"non-finite metrics in {x}")
+        check(x["fused"] is True and x["graphed"] is False,
+              f"the 2-rank protocol did not run the fused epoch eagerly: {x}")
     gammas = [x["gamma"] for x in recs if x["type"] == "task"]
     check(gammas[0] is None and all(g > 0 for g in gammas[1:]), f"gammas {gammas}")
     for r, out in enumerate(proto):
-        check(out["steps"] > 0 and out["launches"] == [out["steps"]] * 2,
-              f"rank {r}: kernel launches {out['launches']} != train steps {out['steps']}")
+        _check_counts(f"rank {r}'s protocol", out["counts"], out["steps"], out["captures"])
     check(proto[0]["steps"] == sum(x["steps"] for x in epochs), "epoch records miss steps")
     check(proto[0]["memory"] == proto[1]["memory"], "the ranks herded different memories")
     check(proto[0]["acc1s"] == proto[1]["acc1s"], "the ranks' accuracies differ")
-    step_ms = statistics.median(1e3 * (x["host_s"] + x["device_s"]) / x["steps"] for x in epochs)
+    step_ms = _step_ms(epochs)
     print(f"[dp] protocol: {proto[0]['steps']} train steps a rank in {nb_tasks} tasks on "
           f"{proto[0]['device']} / {proto[1]['device']}, fit {proto[0]['wall_s']:.1f} s, "
-          f"phase {wall_s:.1f} s; median step {step_ms:.3f} ms [{CARD}]; launches "
-          f"{proto[0]['launches']} / {proto[1]['launches']}; memories equal")
+          f"phase {wall_s:.1f} s; median step {step_ms:.3f} ms [{CARD}]; kernels ran "
+          f"{proto[0]['counts']['ran']} / {proto[1]['counts']['ran']}; memories equal")
     print(f"[dp] acc1 per task: {[round(a, 3) for a in proto[0]['acc1s']]}; gammas {gammas}")
-    return {"backend": backend, "sharded": sharded, "launches": proto[0]["launches"][0],
-            "launches_per_rank": [out["launches"] for out in proto]}
+    return {"backend": backend, "sharded": sharded, "launches": proto[0]["counts"]["ran"][0],
+            "launches_per_rank": [out["counts"]["ran"] for out in proto]}
 
 
 # --------------------------------------------------------------------------- #
@@ -1316,17 +1539,16 @@ def durable_child(out: str, argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    _deterministic_cudnn(torch, True)
     trainer = build_trainer(argv)
     step0 = trainer.global_step
-    fl.FWD_LAUNCHES = fl.BWD_LAUNCHES = 0
     torch.cuda.synchronize()
+    fl.reset_launches()
     t0 = time.perf_counter()
     result = trainer.fit()
     torch.cuda.synchronize()
     torch.save({
-        "launches": [fl.FWD_LAUNCHES, fl.BWD_LAUNCHES], "step0": step0,
+        "counts": _counts(fl), "captures": trainer.epoch_fn.captures, "step0": step0,
         "steps": trainer.global_step - step0, "fit_s": time.perf_counter() - t0,
         "start": [trainer.start_task, trainer.start_epoch],
         "resumed_from": trainer.resumed_from, "result": result,
@@ -1379,23 +1601,27 @@ def _round_trip(torch, tmp):
     import numpy as np
 
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.telemetry import StallClock
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import (
         checkpoint as ck,
     )
 
     ckpt = os.path.join(tmp, "round_trip")
     tr = build_trainer([*DURABLE_ARGV, "--ckpt_dir", ckpt])
-    clock = {"host_s": 0.0, "device_s": 0.0}
+    clock = StallClock()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tr._lr.fill_(0.1)
+    tr._lam.fill_(0.5)
     task0, task1 = tr.scenario_train[0], tr.scenario_train[1]
     tr._grow_state(0, 0, 50)
-    tr._run_epoch_steps(0, task0, 0, 0.1, 0.5, clock)
+    tr._run_epoch_steps(0, task0, 0, gen, clock)
     tr.teacher = ck._new_teacher(tr, 50)
     tr._update_memory(0, task0)
     tr.known, tr.acc1s = 50, [12.5]
     tr.matrix.add_row(0, [12.5])
     task1.add_samples(*tr.memory.get())
     tr._grow_state(1, 50, 10)
-    tr._run_epoch_steps(1, task1, 0, 0.1, 0.5, clock)
+    tr._run_epoch_steps(1, task1, 0, gen, clock)
     torch.cuda.synchronize()
 
     def timed(fn, *args):
@@ -1477,8 +1703,10 @@ def phase_durability(torch):
           and chaos["start"] == [2, 1],
           f"the relaunch resumed from {chaos['resumed_from']} at {chaos['start']}")
     for name, leg in legs.items():
-        check(leg["steps"] > 0 and leg["launches"] == [leg["steps"]] * 2,
-              f"{name}: kernel launches {leg['launches']} != its {leg['steps']} train steps")
+        _check_counts(name, leg["counts"], leg["steps"], leg["captures"])
+        check(all(r["fused"] is True and r["graphed"] is True
+                  for r in leg["log"] if r["type"] == "epoch"),
+              f"{name}: the durability leg did not run the fused, graphed epoch")
     check(chaos["step0"] + chaos["steps"] == twin["steps"],
           f"steps: {chaos['step0']} restored + {chaos['steps']} run != {twin['steps']}")
 
@@ -1511,7 +1739,9 @@ def phase_durability(torch):
           f"{twin['steps']} steps); chaos {chaos['wall_s']:.1f} s wall under the supervisor "
           f"(resumed fit {chaos['fit_s']:.1f} s, {chaos['steps']} steps) [{CARD}]")
     print(f"[durable] resumed from {os.path.basename(chaos['resumed_from']['path'])} at task "
-          f"{chaos['start'][0]}, epoch {chaos['start'][1] + 1}; launches {chaos['launches']}; "
+          f"{chaos['start'][0]}, epoch {chaos['start'][1] + 1}; kernels ran "
+          f"{chaos['counts']['ran']} times after the resume (wrapper calls "
+          f"{chaos['counts']['calls']}); "
           f"bitwise equal to the twin: {bitwise} (state {state_abs:.3g}, acc1s "
           f"{acc_delta:.3g}, gamma {gamma_delta:.3g})")
     for kind, r in report.items():
@@ -1520,7 +1750,7 @@ def phase_durability(torch):
     return {"legs_wall_s": {n: leg["wall_s"] for n, leg in legs.items()},
             "fit_s": {n: leg["fit_s"] for n, leg in legs.items()},
             "steps": {n: leg["steps"] for n, leg in legs.items()},
-            "launches_resumed": chaos["launches"], "resumed_from": chaos["start"],
+            "launches_resumed": chaos["counts"]["ran"], "resumed_from": chaos["start"],
             "deltas": deltas, "round_trip": report, "acc1s": cr["acc1s"],
             "gammas": gammas["chaos"]}
 
@@ -1543,7 +1773,8 @@ def launch_cli(argv) -> int:
 
 def race(log: str, argv) -> int:
     """``race``: the race recipe (RandAugment, the CUDA kernels, batch 128)
-    with the caller's flags, logged to ``log``; prints the card, the wall
+    with the caller's flags under deterministic cuDNN (same-seed runs
+    agree), logged to ``log``; prints the card, the wall
     time, the median train step and the average incremental top-1.  With
     ``--init_state <state.pt>`` the model takes that state dict right after
     task 0's head grows (e.g. the JAX package's initial weights for a seed,
@@ -1565,6 +1796,8 @@ def race(log: str, argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    # Deterministic cuDNN, so that two runs with one seed are one run.
+    _deterministic_cudnn(torch, True)
     t0 = time.perf_counter()
     trainer = build_trainer([*RACE_ARGV, "--batch_size", "128", "--log_file", log, *argv])
     if init_state is not None:
@@ -1582,10 +1815,10 @@ def race(log: str, argv) -> int:
     epochs = [r for r in records if r["type"] == "epoch"]
     summary = {
         "log": log, "argv": argv, "init_state": init_state, "card": smi, "wall_s": wall_s,
+        "graphed": sorted({r["graphed"] for r in epochs}), "captures": trainer.epoch_fn.captures,
         "run_to_final_s": records[-1]["ts"] - records[0]["ts"],
         "steps": sum(r["steps"] for r in epochs),
-        "median_step_ms": statistics.median(
-            1e3 * (r["host_s"] + r["device_s"]) / r["steps"] for r in epochs),
+        "median_step_ms": _step_ms(epochs),
         "avg_incremental_acc1": result["avg_incremental_acc1"], "acc1s": result["acc1s"],
     }
     print(json.dumps({"race": summary}))
@@ -1613,13 +1846,14 @@ def main() -> int:
         augment = phase_augment(torch)
         launches = phase_main_path(torch)
         precision = phase_precision(torch)
+        fused = phase_fused(torch)
         dp = phase_data_parallel(torch)
         durability = phase_durability(torch)
     except (SmokeFailure, ImportError) as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
     kernels = []
-    for name, line in (("fwd", 47), ("bwd", 72)):
+    for i, (name, line) in enumerate((("fwd", 47), ("bwd", 72))):
         t = timing[name]
         c = t["cuda"]
         common = {"replaces": f"{JAX_KERNELS}:{line}", "plain_ms": t["plain_ms"],
@@ -1629,6 +1863,11 @@ def main() -> int:
         kernels.append({
             "name": f"fused_ce_{name}", "route": "cuda", "source": CUDA_SOURCE,
             "kernel": f"fused_ce_{name}_sm90", "on_path": True, "launches": launches[name],
+            "launches_counted_by": "kernel", "wrapper_calls": launches["calls"][i],
+            "graphed": True, "launches_in_a_replayed_epoch": {
+                "profiler": launches["profiled"][name],
+                "steps": launches["profiled"]["steps"],
+                "device_ms": launches["profiled"][f"{name}_device_ms"]},
             "max_abs_err": err[name], "ms": c["ms"], "device_ms": c["device_ms"],
             "host_us": c["host_us"], "floor_ms": t["floor"]["device_ms"],
             "floor_spacing_ms": t["floor"]["ms"], "floor_host_us": t["floor"]["host_us"],
@@ -1671,6 +1910,8 @@ def main() -> int:
     print(json.dumps({"augment": augment, "precision": precision,
                       "main_path_step_ms": launches["step_ms"], "card": smi}))
     print(json.dumps({"durability": durability, "card": smi}))
+    print(json.dumps({"fused": fused, "main_path": {k: launches[k] for k in (
+        "step_ms", "replay_step_ms", "fit_s", "captures", "profiled")}, "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

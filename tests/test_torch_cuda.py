@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: the CUDA C++ kernels against
 their plain versions, the forward's in-kernel batch reduction, a train
 step through the kernels against the same step through the plain loss, the
-augmentation on the card against the same functions on the CPU, and one
-step under each precision preset.  They skip without a card.  This file imports no JAX, so it also runs where
+augmentation on the card against the same functions on the CPU, one
+step under each precision preset, the graphed fused epoch against eager
+steps, and the prefetcher's side stream.  They skip without a card.  This file imports no JAX, so it also runs where
 JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -53,11 +54,14 @@ def test_kernels_match_plain(cuda, b, width, active, smooth, dtype):
     na = torch.tensor([active], dtype=torch.int32, device=cuda)
     g = torch.tensor(0.5, device=cuda)
     launches = (fused_loss.FWD_LAUNCHES, fused_loss.BWD_LAUNCHES)
+    ran = fused_loss.device_launches()
     per, lse, out = fused_loss.fused_ce_fwd(x, y, na, smooth, 1.0 / b)
     dx = fused_loss.fused_ce_bwd(x, y, na, lse, g, smooth, 1.0 / b)
     torch.cuda.synchronize()
     assert (fused_loss.FWD_LAUNCHES, fused_loss.BWD_LAUNCHES) == (launches[0] + 1,
                                                                   launches[1] + 1)
+    # Each kernel counted its own run on the card.
+    assert fused_loss.device_launches() == (ran[0] + 1, ran[1] + 1)
     ref_per, ref_lse, _ = fused_loss.fused_ce_fwd_plain(x, y, na, smooth, 1.0 / b)
     ref_dx = fused_loss.fused_ce_bwd_plain(x, y, na, ref_lse, g, smooth, 1.0 / b)
     tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
@@ -187,3 +191,77 @@ def test_step_under_each_preset_through_the_kernels(cuda, preset):
     assert logits.dtype == torch.float32
     assert all(t.dtype == torch.float32 for t in [*model.parameters(), *model.buffers(),
                                                   *state.momentum])
+
+
+def test_graphed_epoch_equals_eager_steps_and_counts_launches(cuda):
+    """The fused epoch on the card (a captured step replayed) against the
+    same steps run eagerly from the same state, bitwise under deterministic
+    cuDNN: two epochs, the second all replays, a reseeded generator.  The
+    kernels count themselves once a step on the card; the graphed run calls
+    the wrappers twice (the eager first step and the capture)."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import (
+        create_model,
+        grow,
+    )
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        g = torch.Generator().manual_seed(0)
+        data_x = torch.randint(0, 256, (40, 32, 32, 3), dtype=torch.uint8, generator=g).to(cuda)
+        data_y = torch.randint(0, 6, (40,), generator=g).to(cuda)
+        tables = [torch.stack([torch.randperm(40, generator=g)[:16] for _ in range(3)]).to(cuda)
+                  for _ in range(2)]
+        runs = []
+        for graphed in (True, False):
+            model = create_model("resnet20", 10, seed=3).to(cuda)
+            grow(model, torch.Generator().manual_seed(1), 0, 6)
+            state = tt.TrainState(model, tt.sgd_init(model.parameters()),
+                                  torch.tensor([6], dtype=torch.int32, device=cuda),
+                                  torch.tensor([0], dtype=torch.int32, device=cuda))
+            epoch = tt.make_epoch_fn(taug.AugmentConfig(), PRESETS["f32"], 0.0, 2.0, 0.9, 5e-4,
+                                     use_pallas_loss=True, device=cuda)
+            assert epoch.graphed
+            epoch.graphed = graphed
+            gen = torch.Generator(device=cuda)
+            lr, lam = torch.tensor(0.1, device=cuda), torch.tensor(0.5, device=cuda)
+            fused_loss.reset_launches()
+            rows = []
+            for e, table in enumerate(tables):
+                gen.manual_seed(100 + e)
+                lr.fill_(0.1 / (e + 1))
+                rows.append(epoch(state, None, data_x, data_y, table, gen, lr, lam))
+            torch.cuda.synchronize()
+            assert fused_loss.device_launches() == (6, 6)
+            calls = 2 if graphed else 6
+            assert (fused_loss.FWD_LAUNCHES, fused_loss.BWD_LAUNCHES) == (calls, calls)
+            assert epoch.captures == (1 if graphed else 0)
+            runs.append((torch.cat(rows).cpu(),
+                         [t.detach().cpu() for t in [*model.parameters(), *model.buffers()]]))
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_prefetcher_copies_on_a_side_stream(cuda):
+    """At depth 2 on the card the batches are the host's, each placed on a
+    side stream that the consumer's stream waits on."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.prefetch import (
+        DevicePrefetcher,
+        to_device,
+    )
+
+    rng = np.random.RandomState(0)
+    host = [(rng.randint(0, 256, (64, 32, 32, 3)).astype(np.uint8), np.arange(64) + i)
+            for i in range(6)]
+    streams = set()
+
+    def place(batch):
+        streams.add(torch.cuda.current_stream(cuda).cuda_stream)
+        return to_device(cuda, *batch, pinned=True)
+
+    with DevicePrefetcher(iter(host), place, 2, device=cuda) as pf:
+        got = [(x.cpu().numpy(), y.cpu().numpy()) for x, y in pf]
+    assert not pf.alive and len(got) == len(host)
+    assert all(np.array_equal(a, c) and np.array_equal(b, d) for (a, b), (c, d) in zip(got, host))
+    assert streams and torch.cuda.current_stream(cuda).cuda_stream not in streams

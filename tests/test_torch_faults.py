@@ -115,8 +115,10 @@ def test_step_and_produce_sites_fire_where_the_jax_loop_does(supervised, tmp_pat
     ckpt = str(tmp_path / "ckpt")
     _copy_ckpt(supervised["ckpt"], ckpt, "task_000.ckpt")
     log = str(tmp_path / "run.jsonl")
-    t = CilTrainer(_cfg(ckpt_dir=ckpt, resume=True, fault_spec=spec, log_file=log),
-                   device="cpu")
+    # The per-step loop: its sites fire at each host batch and each step
+    # (the fused path settles step clauses after the epoch instead).
+    t = CilTrainer(_cfg(ckpt_dir=ckpt, resume=True, fault_spec=spec, log_file=log,
+                        fused_epochs=False), device="cpu")
     with pytest.raises(FaultInjected) as info:
         t.fit()
     assert info.value.site == site and info.value.coords["step"] == max(steps, 1)

@@ -15,7 +15,8 @@ from JAX's seed-``s`` weights, or from the port's own, to show which.
 
 The last writes JAX's seed-0 weights for ``chip_smoke.py race ... --init_state
 build/jax_seed0_init.pt``, which runs the whole protocol on the card from
-them.  The test holds the helper to the JAX trainer's own initial state.
+them.  The tests hold the helper to the JAX trainer's own initial state, and
+the port's initial weights to the same law as JAX's, layer by layer.
 """
 
 import os
@@ -63,6 +64,65 @@ def test_jax_initial_state_is_the_jax_trainers():
         np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
 
 
+def port_initial_state(seed: int, backbone: str, nb_classes: int, first_task: int) -> dict:
+    """The port trainer's weights after growing the first task's head
+    (``CilTrainer.__init__`` and ``_grow_state``), without its data."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine.loop import (
+        _INIT_STREAM,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import (
+        create_model,
+        grow,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.platform import (
+        derive_seed,
+        make_generator,
+    )
+
+    model = create_model(backbone, nb_classes, seed=derive_seed(seed, _INIT_STREAM))
+    grow(model, make_generator(model.fc.weight.device, seed, _INIT_STREAM, 0), 0, first_task)
+    return model.state_dict()
+
+
+def test_initial_weights_follow_jax_law_layer_by_layer():
+    """Over K seeds, each initialized tensor of resnet32 and the task-0 head
+    has the same mean and standard deviation in the port as in the JAX
+    package: He normal over fan-out, ``N(0, 2 / (3·3·out))``, for every conv
+    (JAX ``models/resnet.py:50``), ``U(±1/8)`` for the head's 50 rows and
+    biases (JAX ``models/classifier.py:39-54``), BN at 1 and 0.  Bounds: 5
+    standard errors of the pooled estimate, ``σ·sqrt(2/N)`` for the mean
+    difference and ``sqrt(1/N)`` relative for the std difference of two
+    samples of N values each; each side is also held to the law itself."""
+    seeds = range(6)
+    port = [port_initial_state(s, "resnet32", 100, 50) for s in seeds]
+    jaxs = [jax_initial_state(s, "resnet32", 100, 50) for s in seeds]
+    assert port[0].keys() == jaxs[0].keys()
+    checked = 0
+    for name, ref in port[0].items():
+        if name.endswith(("running_mean", "running_var")) or ".bn" in name:
+            for p, j in zip(port, jaxs):
+                np.testing.assert_array_equal(p[name].numpy(), j[name].numpy(), err_msg=name)
+            continue
+        rows = slice(0, 50) if name.startswith("fc.") else slice(None)
+        a = np.concatenate([p[name][rows].numpy().ravel() for p in port]).astype(np.float64)
+        b = np.concatenate([j[name][rows].numpy().ravel() for j in jaxs]).astype(np.float64)
+        if ref.dim() == 4:
+            sigma = np.sqrt(2.0 / (ref.shape[2] * ref.shape[3] * ref.shape[0]))
+        else:
+            sigma = 1.0 / 8.0 / np.sqrt(3.0)  # U(-1/sqrt(64), 1/sqrt(64))
+        n = a.size
+        for x in (a, b):
+            assert abs(x.mean()) < 5 * sigma / np.sqrt(n), name
+            assert abs(x.std() / sigma - 1) < 5 / np.sqrt(2 * n), name
+        assert abs(a.mean() - b.mean()) < 5 * sigma * np.sqrt(2.0 / n), name
+        assert abs(a.std() / b.std() - 1) < 5 / np.sqrt(n), name
+        if name.startswith("fc."):
+            bound = 1.0 / 8.0
+            assert a.min() >= -bound and a.max() <= bound and b.min() >= -bound, name
+        checked += 1
+    assert checked == 31 + 2  # 31 convs, the head's weight and bias
+
+
 def probe(seed: int, epochs: int, port_init: bool) -> list:
     """Mean train CE of each of the first ``epochs`` epochs of task 0 of the
     protocol (35-epoch schedule), the port on the CPU, from JAX's seed-``s``
@@ -78,10 +138,16 @@ def probe(seed: int, epochs: int, port_init: bool) -> list:
     trainer._grow_state(0, 0, 50)
     if not port_init:
         trainer.state.model.load_state_dict(jax_initial_state(seed, "resnet32", 100, 50))
+    import torch
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.telemetry import StallClock
+
     ces = []
+    trainer._lam.fill_(0.5)
     for epoch in range(epochs):
-        rows = trainer._run_epoch_steps(0, task, epoch, cosine_lr(0.1, epoch, 35), 0.5,
-                                        {"host_s": 0.0, "device_s": 0.0})
+        trainer._lr.fill_(cosine_lr(0.1, epoch, 35))
+        gen = torch.Generator().manual_seed(epoch)
+        rows = trainer._run_epoch_steps(0, task, epoch, gen, StallClock())
         ces.append(float(np.mean([r["ce"] for r in rows])))
         print(f"seed {seed} {'port' if port_init else 'JAX'} initial weights: epoch "
               f"{epoch + 1} train CE {ces[-1]:.4f}", flush=True)

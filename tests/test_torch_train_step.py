@@ -250,7 +250,7 @@ def test_cli_on_cpu_writes_the_record_sequence(tmp_path):
     ["--aa", "none", "--color_jitter", "0", "--telemetry_dir", "tel"],
     ["--aa", "none", "--color_jitter", "0", "--export_dir", "exp"],
     ["--aa", "none", "--color_jitter", "0", "--check_lockstep"],
-    ["--aa", "none", "--color_jitter", "0", "--prefetch_depth", "2"],
+    ["--aa", "none", "--color_jitter", "0", "--serve_skew_check"],
 ])
 def test_flags_outside_the_slice_raise(flags):
     with pytest.raises(NotImplementedError, match="slice"):
