@@ -4,8 +4,9 @@ Same field names, flag names and defaults as the JAX package's
 ``config.py``, so one argv drives either trainer.  The port runs the parser's
 augmentation (RandAugment or colour jitter, random erasing) under every
 precision preset, on the per-step loop, on one device or data parallel over
-N processes, with pickle checkpoints, resume and the training-side fault
-sites; every flag that selects something outside it is rejected by
+N processes, with pickle checkpoints, resume, the training-side fault sites,
+the telemetry and its sentinels (threads, contracts, lockstep, recompile
+budget); every flag that selects something outside it is rejected by
 :func:`check_supported` (or, for ``--mesh_model``, ``parallel.data_axis``)
 with the name of the slice that will bring it, never silently ignored.
 """
@@ -166,14 +167,6 @@ def _serves(fault_spec: Optional[str]) -> bool:
 _LATER_SLICES = (
     ("ckpt_backend", lambda v: v == "orbax", "model-axis"),
     ("fault_spec", _serves, "serving"),
-    ("telemetry_dir", lambda v: v is not None, "telemetry"),
-    ("heartbeat_path", lambda v: v is not None, "telemetry"),
-    ("profile_dir", lambda v: v is not None, "telemetry"),
-    ("recompile_budget", bool, "telemetry"),
-    ("check_threads", bool, "telemetry"),
-    ("check_contracts", bool, "telemetry"),
-    ("check_lockstep", bool, "lockstep"),
-    ("lockstep_dir", lambda v: v is not None, "lockstep"),
     ("export_dir", lambda v: v is not None, "serving"),
     ("serve_skew_check", bool, "serving"),
 )

@@ -3,7 +3,9 @@
 The same index streams as the JAX package's ``data/loader.py``: train epochs
 wrap-pad a seeded permutation to whole batches, eval pads the tail batch with
 zero-weight rows, and the herding pass is an unshuffled wrap-padded sweep.
-Batches are uint8; augmentation runs on the device (``data/augment.py``).
+Batches are uint8, assembled by the native row gather where it applies
+(``utils/native.py`` ``gather_rows``, bitwise numpy's ``src[idx]``);
+augmentation runs on the device (``data/augment.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
+from ..utils.native import gather_rows
 from .scenario import TaskSet
 
 
@@ -58,7 +61,7 @@ def train_batches(
     stripe = slice(process_index * per_proc, (process_index + 1) * per_proc)
     for idx in epoch_index_table(len(task), batch_size, seed):
         idx = idx[stripe]
-        yield task.x[idx], task.y[idx]
+        yield gather_rows(task.x, idx), task.y[idx]
 
 
 def eval_batches(
@@ -76,7 +79,7 @@ def eval_batches(
         w = (idx < n).astype(np.float32)
         idx = np.minimum(idx, n - 1)
         sl = slice(process_index * per_proc, (process_index + 1) * per_proc)
-        yield task.x[idx[sl]], task.y[idx[sl]], w[sl]
+        yield gather_rows(task.x, idx[sl]), task.y[idx[sl]], w[sl]
 
 
 def sequential_batches(
@@ -89,4 +92,4 @@ def sequential_batches(
     idx_all = np.resize(np.arange(n), nb_batches * batch_size)
     for b in range(nb_batches):
         idx = idx_all[b * batch_size : (b + 1) * batch_size]
-        yield task.x[idx], task.y[idx]
+        yield gather_rows(task.x, idx), task.y[idx]

@@ -1,11 +1,14 @@
-"""Rehearsal memory with herding exemplar selection (numpy, on the host).
+"""Rehearsal memory with herding exemplar selection, on the host.
 
-Same semantics as the JAX package's ``data/memory.py`` with its numpy
-herding: ``add`` re-ranks every class present in the added data with the
-current model's features, the per-class quota is ``memory_size //
-nb_seen_classes`` (or ``// nb_total_classes`` with ``fixed_memory``), and
-``get`` returns the exemplars of all classes in class order.  The greedy is
-a few thousand feature vectors once per task, so it stays on the host.
+Same semantics as the JAX package's ``data/memory.py``: ``add`` re-ranks
+every class present in the added data with the current model's features,
+the per-class quota is ``memory_size // nb_seen_classes`` (or ``//
+nb_total_classes`` with ``fixed_memory``), and ``get`` returns the
+exemplars of all classes in class order.  The barycenter greedy runs in
+C++ (``csrc/cil_host.cpp`` through ``utils/native.py``) when the library
+loads and the memory prefers it, else in numpy with the same arithmetic.
+The greedy is a few thousand feature vectors once per task, so it stays on
+the host.
 """
 
 from __future__ import annotations
@@ -15,10 +18,18 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 
 
-def herd_barycenter(features: np.ndarray, nb: int) -> np.ndarray:
+def herd_barycenter(features: np.ndarray, nb: int, allow_native: bool = True) -> np.ndarray:
     """iCaRL greedy herding: the first ``nb`` indices, in selection order,
     such that each prefix's mean best approximates the class mean (float32
-    storage, float64 accumulation, first-index tie break)."""
+    storage, float64 accumulation, first-index tie break).  Through the C++
+    kernel when ``allow_native`` and the library loads; the two paths differ
+    only by summation order, so at most on sub-ulp near-ties."""
+    if allow_native:
+        from ..utils.native import herd_barycenter_native
+
+        native = herd_barycenter_native(np.asarray(features, np.float32), nb)
+        if native is not None:
+            return native
     features = np.asarray(features, np.float32).astype(np.float64)
     n = len(features)
     nb = min(nb, n)
@@ -96,6 +107,7 @@ class RehearsalMemory:
         herding_method="barycenter",
         fixed_memory: bool = False,
         nb_total_classes: Optional[int] = None,
+        prefer_native: bool = True,
     ):
         if isinstance(herding_method, str):
             if herding_method not in _METHODS:
@@ -107,6 +119,10 @@ class RehearsalMemory:
         self.herd = herding_method
         self.memory_size = memory_size
         self.fixed_memory = fixed_memory
+        # False forces the numpy greedy; a multi-process trainer passes the
+        # AND of every rank's native availability, so replicated memories
+        # never diverge between ranks with and without the library.
+        self.prefer_native = prefer_native
         if fixed_memory and not nb_total_classes:
             raise ValueError("fixed_memory=True requires nb_total_classes")
         self.nb_total_classes = nb_total_classes
@@ -142,6 +158,8 @@ class RehearsalMemory:
             idx = np.where(y == c)[0]
             if self.herd is herd_random:
                 rank = herd_random(features[idx], q, seed=int(c) + 1)
+            elif self.herd is herd_barycenter:
+                rank = herd_barycenter(features[idx], q, allow_native=self.prefer_native)
             else:
                 rank = self.herd(features[idx], q)
             keep = idx[rank]

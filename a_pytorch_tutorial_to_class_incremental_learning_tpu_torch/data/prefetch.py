@@ -30,7 +30,10 @@ No compute runs on the side stream: only copies.
 With a ``clock`` (a :class:`~..telemetry.StallClock`), only the time the
 consumer blocks on the ring is charged to its host bucket; at depth 0
 (no thread) the whole production is.  :meth:`DevicePrefetcher.stats` gives
-the ring's mean fill at each get (``occupancy``).
+the ring's mean fill at each get (``occupancy``).  With ``metrics`` (a
+telemetry ``MetricsRegistry``), the ring also feeds JAX's series:
+``prefetch_wait_ms_total`` (the consumer's blocked time),
+``prefetch_batches_total`` and the ``prefetch_occupancy`` gauge.
 """
 
 from __future__ import annotations
@@ -86,12 +89,20 @@ class DevicePrefetcher:
         name: str = "prefetch",
         on_degrade: Optional[Callable] = None,
         device: Optional[torch.device] = None,
+        metrics=None,
     ):
         self._source = iter(source)
         self._place = place if place is not None else (lambda batch: batch)
         self.depth = max(0, int(depth))
         self._clock = clock
         self._on_degrade = on_degrade
+        if metrics is None:
+            from ..telemetry.metrics import NullRegistry
+
+            metrics = NullRegistry()
+        self._m_wait_ms = metrics.counter("prefetch_wait_ms_total")
+        self._m_batches = metrics.counter("prefetch_batches_total")
+        self._m_occupancy = metrics.gauge("prefetch_occupancy")
         self._device = None
         if device is not None and device.type == "cuda":
             # The producer thread names its card by index.
@@ -198,8 +209,11 @@ class DevicePrefetcher:
         self._gets += 1
         t0 = time.perf_counter()
         tag, payload = self._queue.get()
-        self._charge(time.perf_counter() - t0)
+        wait = time.perf_counter() - t0
+        self._charge(wait)
+        self._m_wait_ms.inc(wait * 1e3)
         if tag == _BATCH:
+            self._m_batches.inc()
             placed, event = payload
             if event is not None:
                 current = torch.cuda.current_stream(self._device)
@@ -261,6 +275,7 @@ class DevicePrefetcher:
         self._drain()
         if self._clock is not None:
             self._clock.set_prefetch(self.depth, self.occupancy())
+        self._m_occupancy.set(self.occupancy())
 
     def _drain(self) -> None:
         if self._queue is None:

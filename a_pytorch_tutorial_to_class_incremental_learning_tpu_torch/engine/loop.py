@@ -5,7 +5,7 @@ rehearsal exemplars, grow the head and reset SGD, run the epochs (with the
 reference's eval cadence), weight-align the new head (tasks > 0), evaluate
 every seen task's slice, snapshot the teacher (a deep copy), herd the next
 memory, and write the ``run/epoch/task/cil_metrics/final`` JSONL records.
-Telemetry spans, lockstep and export arrive with later slices.
+The serving export arrives with a later slice.
 
 The fused epoch (``--fused_epochs``, the parser's default; JAX
 ``engine/loop.py:715``): when the task's pixels are uint8, its dataset goes
@@ -49,6 +49,40 @@ is seeded from ``(seed, stream, task[, epoch])`` alone and every shuffle
 hashes ``(seed, task, epoch)``, so no stream depends on the draws before it
 and an epoch-boundary resume repeats the uninterrupted run.
 
+Telemetry (``telemetry/``, JAX ``engine/loop.py:91-186``), at JAX's sites:
+the ``fit`` > ``task`` > {``rehearsal_inject``, ``head_grow``, ``epoch``,
+``epoch_checkpoint``, ``align``, ``eval_matrix``, ``teacher_snapshot``,
+``herd``, ``checkpoint``} span tree (``build_scenario`` before it) with
+``--telemetry_dir``; the heartbeat (phases ``train``, ``eval``, ``herd`` and
+each epoch) with ``--heartbeat_path`` or a telemetry dir; the flight
+recorder, which the fault injector's ``on_fatal`` and the lockstep
+sentinel dump through; the metrics registry (``steps_total``,
+``step_latency_ms``, ``epochs_total``, ``stall_frac``, ``recompiles_total``)
+always, its ``metrics_snapshot`` pump when telemetry is on; and, under
+every flag set, a ``compile_event`` at each task's first executed epoch, a
+``recompile`` record when the train group's captured graphs grow (a
+program is a CUDA graph: ``EpochFn._cache_size``; eager steps hold none),
+and an ``hbm`` record a task on the card.  No telemetry runs between a
+capture's begin and end: spans and ``record_function`` wrap the epoch,
+and the telemetry threads never touch CUDA.  ``step_latency_ms`` is, per
+step, the host's time to dispatch an eager step on the per-step path and,
+on the fused path, one observation an epoch: the epoch's replays and its
+one fetch over its steps (JAX: its scan's dispatch and fetch).
+``--profile_dir`` runs each task's first executed epoch, its graph capture
+included, under ``torch.profiler`` and logs ``profile_trace`` with the
+trace's file.  ``--recompile_budget`` holds the captures to one per head
+growth or restore; ``--check_threads`` and ``--check_contracts`` install
+``analysis/threadcheck.py`` and ``analysis/contractcheck.py``;
+``--check_lockstep`` fingerprints every train, eval and herding dispatch
+with ``analysis/lockstep.py`` and compares ranks: once a fused epoch, with
+a digest of the task's host arrays; once a step on the per-step path, with
+a digest of the global batch (made on the producer thread), which every
+rank holds and takes its stripe of.
+
+Native herding (``utils/native.py``): the C++ greedy of
+``csrc/cil_host.cpp``, built at startup, used only when every rank has it
+(an all-reduce MIN of the ranks' availability).
+
 The precision policy is resolved once from the config (``--precision``
 wins over ``--compute_dtype``) and handed to the model, the teacher (a copy
 of it) and the train step; TF32 stays off, so the f32 parts of every preset
@@ -91,8 +125,15 @@ from ..data.prefetch import DevicePrefetcher, to_device
 from ..models import align, create_model, group_span, grow
 from ..ops.precision import policy_from_config
 from ..parallel import barrier, broadcast_module, data_axis
-from ..telemetry import AccuracyMatrix, StallClock, average_incremental_accuracy
+from ..telemetry import (
+    AccuracyMatrix,
+    CompileWatch,
+    StallClock,
+    Telemetry,
+    average_incremental_accuracy,
+)
 from ..utils.logging import JsonlLogger, MetricLogger
+from ..utils.profiling import task_trace
 from ..utils.platform import derive_seed, make_generator, resolve_device, use_full_f32
 from .train import (
     METRICS,
@@ -133,13 +174,58 @@ class CilTrainer:
         if config.bn_group_size > 0:
             group_span(config.bn_group_size, config.batch_size, self.axis.size)
         use_full_f32()
+        # --check_threads first, so the telemetry's locks are made
+        # instrumented; --check_contracts wraps the log under the flight tee.
+        self.threadcheck = None
+        if config.check_threads:
+            from analysis import threadcheck
+
+            self.threadcheck = threadcheck.install()
+        contracts = None
+        if config.check_contracts:
+            from analysis import contractcheck as contracts
+        self.contractcheck = contracts.install() if contracts is not None else None
+        log_path = config.log_file
+        if log_path is None and config.telemetry_dir:
+            log_path = os.path.join(config.telemetry_dir, "run.jsonl")
         # A resumed run appends, so the records before the crash stay.
-        self.jsonl = JsonlLogger(config.log_file, append=config.resume,
+        self.jsonl = JsonlLogger(log_path, append=config.resume,
                                  process_index=self.axis.rank,
                                  process_count=self.axis.size)
+        if contracts is not None:
+            self.jsonl = contracts.wrap_sink(self.jsonl)
+        self.telemetry = Telemetry(
+            telemetry_dir=config.telemetry_dir,
+            heartbeat_path=config.heartbeat_path,
+            heartbeat_interval_s=config.heartbeat_interval_s,
+            sink=self.jsonl,
+            flight_events=config.flight_events,
+            process_index=self.axis.rank,
+            process_count=self.axis.size,
+            metrics=config.metrics,
+            metrics_interval_s=config.metrics_interval_s,
+            metrics_source="train",
+            devices=[self.device],
+        )
+        # The flight tee, when there is a flight recorder.
+        self.jsonl = self.telemetry.sink
+        if self.threadcheck is not None:
+            self.threadcheck.bind_sink(self.jsonl)
+        if contracts is not None:
+            self.contractcheck.bind_sink(self.jsonl)
+            self.telemetry.metrics = contracts.wrap_registry(self.telemetry.metrics)
+        reg = self.telemetry.metrics
+        self._m_steps = reg.counter("steps_total")
+        self._m_step_ms = reg.histogram("step_latency_ms", lowest=0.5, growth=2.0, buckets=18)
+        self._m_epochs = reg.counter("epochs_total")
+        self._m_stall = reg.gauge("stall_frac")
+        self._m_recompiles = reg.gauge("recompiles_total")
+        self.lockstep = self._lockstep_sentinel()
         self.faults = self._fault_injector()
-        self.scenario_train, self.nb_classes = build_scenario(config, train=True)
-        self.scenario_val, _ = build_scenario(config, train=False)
+        with self.telemetry.span("build_scenario"):
+            self.scenario_train, self.nb_classes = build_scenario(config, train=True)
+            self.scenario_val, _ = build_scenario(config, train=False)
+        self._compile_watch = CompileWatch.install()
 
         data_x = self.scenario_train._x
         if data_x.shape[1] != config.input_size:
@@ -171,6 +257,7 @@ class CilTrainer:
             herding_method=config.herding_method,
             fixed_memory=config.fixed_memory,
             nb_total_classes=self.nb_classes if config.fixed_memory else None,
+            prefer_native=self._native_everywhere(),
         )
         step_hp = dict(
             label_smoothing=config.smooth,
@@ -194,6 +281,16 @@ class CilTrainer:
             self.aug_cfg, augmented=config.herding_augmented
         )
         self.global_step = 0
+        # Programs are the fused epoch's captured graphs; they are due at a
+        # task's first executed epoch.  The budget is made before the
+        # resume below, so that a restore grants one.
+        self.telemetry.recompiles.track("epoch_fn", self.epoch_fn, group="train")
+        self.recompile_sentinel = None
+        if config.recompile_budget:
+            from analysis.runtime import RecompileSentinel
+
+            self.recompile_sentinel = RecompileSentinel(
+                self.telemetry.recompiles, group="train", per_event=1, sink=self.jsonl)
         self.jsonl.log(
             "run",
             data_set=config.data_set,
@@ -256,7 +353,45 @@ class CilTrainer:
             if archived:
                 self.jsonl.log("fault_ledger_rotated", path=ledger, archived=archived)
         barrier()
-        return injector_from(cfg.fault_spec, ledger_path=ledger, sink=self.jsonl)
+        flight = self.telemetry.flight
+        return injector_from(cfg.fault_spec, ledger_path=ledger, sink=self.jsonl,
+                             on_fatal=flight.fatal_dump if flight is not None else None)
+
+    def _lockstep_sentinel(self):
+        """The ``--check_lockstep`` sentinel, or None.  Its exchange
+        directory defaults under the telemetry dir, then the checkpoint
+        dir; each rank clears its own subdirectory at construction, so every
+        rank waits for the others before the first check."""
+        cfg = self.config
+        if not cfg.check_lockstep:
+            return None
+        from analysis.lockstep import LockstepSentinel
+
+        lockstep_dir = cfg.lockstep_dir
+        if lockstep_dir is None and cfg.telemetry_dir:
+            lockstep_dir = os.path.join(cfg.telemetry_dir, "lockstep")
+        if lockstep_dir is None and cfg.ckpt_dir:
+            lockstep_dir = os.path.join(cfg.ckpt_dir, "lockstep")
+        flight = self.telemetry.flight
+        sentinel = LockstepSentinel(
+            lockstep_dir, process_index=self.axis.rank, process_count=self.axis.size,
+            sink=self.jsonl, on_fatal=flight.fatal_dump if flight is not None else None,
+            deadline_s=cfg.lockstep_deadline_s)
+        barrier()
+        return sentinel
+
+    def _native_everywhere(self) -> bool:
+        """Load (building if needed) the native herding library, at startup;
+        True only if every rank has it (an all-reduce MIN), so replicated
+        memories never differ between ranks with and without it."""
+        from ..utils.native import native_available
+
+        have = native_available()
+        if self.axis.sharded:
+            flag = torch.tensor([int(have)], dtype=torch.int32, device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.axis.group)
+            have = bool(flag.item())
+        return have
 
     def _count(self, n: int) -> torch.Tensor:
         return torch.tensor([n], dtype=torch.int32, device=self.device)
@@ -271,85 +406,110 @@ class CilTrainer:
     # ------------------------------------------------------------------ #
 
     def fit(self) -> Dict:
-        """Run every task; returns the headline results."""
+        """Run every task under the root ``fit`` span, with the heartbeat
+        thread live; returns the headline results."""
+        tel = self.telemetry
+        tel.heartbeat.start()
         try:
-            return self._fit_tasks()
+            with tel.span("fit"):
+                return self._fit_tasks()
         finally:
             # A warm ring armed for a task that never ran (the last task, a
             # crash) must still release its thread and device buffers.
             if self._task_warm is not None:
                 self._task_warm["prefetcher"].close()
                 self._task_warm = None
+            tel.close()
 
     def _fit_tasks(self) -> Dict:
+        tel = self.telemetry
         increments = self.scenario_train.increments()
         for task_id, task_train in enumerate(self.scenario_train):
             if task_id < self.start_task:
                 continue  # restored past this task
             nb_new = increments[task_id]
             dataset_val = self.scenario_val[: task_id + 1]
-            if task_id > 0:
-                task_train.add_samples(*self.memory.get())
-            # Mid-task resume: the restored model has this task's head
-            # already; growing it again would re-draw the new columns.
-            resume_epoch = self.start_epoch if task_id == self.start_task else 0
-            if resume_epoch == 0:
-                self._grow_state(task_id, self.known, nb_new)
-            t0 = time.time()
-            self._fit_task(task_id, task_train, dataset_val, nb_new, resume_epoch)
+            with tel.span("task", task=task_id):
+                tel.heartbeat.update(force=True, task=task_id, phase="train")
+                if task_id > 0:
+                    with tel.span("rehearsal_inject", task=task_id):
+                        task_train.add_samples(*self.memory.get())
+                # Mid-task resume: the restored model has this task's head
+                # already; growing it again would re-draw the new columns.
+                resume_epoch = self.start_epoch if task_id == self.start_task else 0
+                if resume_epoch == 0:
+                    with tel.span("head_grow", task=task_id):
+                        self._grow_state(task_id, self.known, nb_new)
+                t0 = time.time()
+                self._fit_task(task_id, task_train, dataset_val, nb_new, resume_epoch)
+                if self.recompile_sentinel is not None:
+                    # Every capture this task may make has been made.
+                    self.recompile_sentinel.check(where=f"task{task_id}", task_id=task_id)
 
-            gamma = None
-            if task_id > 0:
-                gamma = align(self.state.model, self.known, nb_new)
-                print(f"old norm / new norm ={gamma}")
-            # One accuracy-matrix row: each seen task's val slice evaluated
-            # separately; the exact weighted totals sum to the cumulative
-            # ones.  One all-reduce and one device->host fetch for the row.
-            slice_totals = self._sum_over_ranks(torch.stack([
-                self._eval_totals_device(self.scenario_val[j])
-                for j in range(task_id + 1)
-            ])).cpu().numpy()
-            totals = slice_totals.sum(axis=0)
-            print(_eval_line(totals))
-            acc1 = float(100.0 * totals[1] / max(totals[3], 1.0))
-            self.acc1s.append(acc1)
-            acc_per_task = [
-                round(float(100.0 * t[1] / max(t[3], 1.0)), 5) for t in slice_totals
-            ]
-            task_s = time.time() - t0
-            print(
-                f"task id = {task_id}  @Acc1 = {acc1:.5f}, "
-                f"acc1s = {self.acc1s}  ({task_s:.1f}s)"
-            )
-            self.jsonl.log(
-                "task",
-                task_id=task_id,
-                acc1=acc1,
-                acc1s=list(self.acc1s),
-                acc_per_task=acc_per_task,
-                gamma=gamma,
-                nb_new=nb_new,
-                known_after=self.known + nb_new,
-                seconds=round(task_s, 1),
-            )
-            self.matrix.add_row(task_id, acc_per_task)
-            self.jsonl.log(
-                "cil_metrics",
-                task_id=task_id,
-                avg_incremental_acc1=round(average_incremental_accuracy(self.acc1s), 5),
-                **self.matrix.summary(),
-            )
-            # Teacher snapshot: a deep copy, so the student's in-place SGD
-            # updates never reach it.
-            teacher_model = copy.deepcopy(self.state.model).requires_grad_(False)
-            self.teacher = Teacher(model=teacher_model, known=self._count(self.known + nb_new))
-            self._update_memory(task_id, task_train)
-            # The memory is final for the next task: start its dataset's copy
-            # to the device, overlapping the checkpoint and the next task's
-            # setup.
-            self._warm_next_task(task_id)
-            self.known += nb_new
-            self._save_checkpoint(task_id)
+                gamma = None
+                if task_id > 0:
+                    with tel.span("align", task=task_id):
+                        gamma = align(self.state.model, self.known, nb_new)
+                    print(f"old norm / new norm ={gamma}")
+                # One accuracy-matrix row: each seen task's val slice
+                # evaluated separately; the exact weighted totals sum to the
+                # cumulative ones.  One all-reduce and one device->host fetch
+                # for the row.
+                tel.heartbeat.update(force=True, task=task_id, phase="eval")
+                with tel.span("eval_matrix", task=task_id):
+                    slice_totals = self._sum_over_ranks(torch.stack([
+                        self._eval_totals_device(self.scenario_val[j])
+                        for j in range(task_id + 1)
+                    ])).cpu().numpy()
+                totals = slice_totals.sum(axis=0)
+                print(_eval_line(totals))
+                acc1 = float(100.0 * totals[1] / max(totals[3], 1.0))
+                self.acc1s.append(acc1)
+                acc_per_task = [
+                    round(float(100.0 * t[1] / max(t[3], 1.0)), 5) for t in slice_totals
+                ]
+                task_s = time.time() - t0
+                print(
+                    f"task id = {task_id}  @Acc1 = {acc1:.5f}, "
+                    f"acc1s = {self.acc1s}  ({task_s:.1f}s)"
+                )
+                self.jsonl.log(
+                    "task",
+                    task_id=task_id,
+                    acc1=acc1,
+                    acc1s=list(self.acc1s),
+                    acc_per_task=acc_per_task,
+                    gamma=gamma,
+                    nb_new=nb_new,
+                    known_after=self.known + nb_new,
+                    seconds=round(task_s, 1),
+                )
+                self.matrix.add_row(task_id, acc_per_task)
+                self.jsonl.log(
+                    "cil_metrics",
+                    task_id=task_id,
+                    avg_incremental_acc1=round(average_incremental_accuracy(self.acc1s), 5),
+                    **self.matrix.summary(),
+                )
+                # Teacher snapshot: a deep copy, so the student's in-place
+                # SGD updates never reach it.
+                with tel.span("teacher_snapshot", task=task_id):
+                    teacher_model = copy.deepcopy(self.state.model).requires_grad_(False)
+                    self.teacher = Teacher(model=teacher_model,
+                                           known=self._count(self.known + nb_new))
+                tel.heartbeat.update(force=True, task=task_id, phase="herd")
+                with tel.span("herd", task=task_id):
+                    self._update_memory(task_id, task_train)
+                # The memory is final for the next task: start its dataset's
+                # copy to the device, overlapping the checkpoint and the next
+                # task's setup.
+                self._warm_next_task(task_id)
+                self.known += nb_new
+                with tel.span("checkpoint", task=task_id):
+                    self._save_checkpoint(task_id)
+                # The card's memory at the task boundary: the grown head,
+                # the resident dataset, the teacher and the graph all moved.
+                tel.log_hbm(task_id=task_id)
         avg_inc = float(np.mean(self.acc1s)) if self.acc1s else 0.0
         print(f"avg incremental top-1 = {avg_inc:.3f}")
         summary = self.matrix.summary() if self.matrix.rows else {}
@@ -373,6 +533,8 @@ class CilTrainer:
         self.state.momentum = sgd_init(self.state.model.parameters())
         self.state.num_active = self._count(known + nb_new)
         self.state.known = self._count(known)
+        if self.recompile_sentinel is not None:
+            self.recompile_sentinel.note_event("task_growth", task_id=task_id)
 
     def _lambda_kd(self, task_id: int) -> float:
         """λ for the KD term; with ``dynamic_lambda_kd``, n/(n+m)."""
@@ -405,7 +567,8 @@ class CilTrainer:
         from ..utils.checkpoint import save_epoch_checkpoint
 
         try:
-            save_epoch_checkpoint(self, task_id, epoch, nb_new)
+            with self.telemetry.span("epoch_checkpoint", task=task_id, epoch=epoch):
+                save_epoch_checkpoint(self, task_id, epoch, nb_new)
         except OSError as e:
             print(f"| epoch checkpoint save failed: {e!r}")
             self.jsonl.log("ckpt_save_error", error=repr(e), task_id=task_id, epoch=epoch)
@@ -413,8 +576,10 @@ class CilTrainer:
     def _fit_task(self, task_id: int, task_train, dataset_val, nb_new: int,
                   start_epoch: int = 0) -> None:
         cfg = self.config
+        tel = self.telemetry
         # The fused epoch needs the pixels in memory as uint8.
         fused = cfg.fused_epochs and task_train.x.dtype == np.uint8
+        task_digest = None
         if fused:
             # The last task's captured step read tensors that this task
             # rebinds: the grown head and fresh momentum, the teacher, and
@@ -425,33 +590,69 @@ class CilTrainer:
             resident = self._consume_task_warm(task_id, task_train)
             if resident is None:
                 resident = to_device(self.device, task_train.x, task_train.y)
+            # One digest a task, of the host arrays the resident copy came
+            # from: the finest grain the host sees on this path.
+            if self.lockstep is not None:
+                from analysis.lockstep import data_digest
+
+                task_digest = data_digest(task_train.x, task_train.y)
         self._lam.fill_(self._lambda_kd(task_id))
         # One generator a task (a captured step binds it), reseeded each
         # epoch: the draws are a pure function of (seed, task, epoch).
         gen = torch.Generator(device=self.device)
         for epoch in range(start_epoch, cfg.num_epochs):
+            # A task's first executed epoch holds its capture (and any
+            # build): it is priced in a compile_event and, with
+            # --profile_dir, traced, the capture included.
+            first = epoch == start_epoch
+            watch_before = self._compile_watch.snapshot() if first else None
+            profile_here = cfg.profile_dir if first else None
+            trace_name = f"task{task_id}_epoch{epoch}"
             t_epoch = time.perf_counter()
             lr = cosine_lr(cfg.lr, epoch, cfg.num_epochs)
             self._lr.fill_(lr)
             gen.manual_seed(derive_seed(cfg.seed, _AUG_STREAM, task_id, epoch))
             clock = StallClock()
-            if fused:
-                pending = self._run_epoch_fused(task_id, len(task_train), resident, epoch, gen,
-                                                clock)
-                # The fused epoch has no per-step fire site: settle the
-                # step-level clauses now that the step count is known, before
-                # the epoch-checkpoint hook, so a reconciled kill at step S
-                # resumes from the previous epoch's checkpoint, as a kill
-                # inside the epoch would.
-                if self.faults is not None:
-                    self.faults.reconcile_steps("engine.step", task=task_id, epoch=epoch + 1,
-                                                steps=len(pending))
-            else:
-                pending = self._run_epoch_steps(task_id, task_train, epoch, gen, clock)
+            with tel.span("epoch", task=task_id, epoch=epoch + 1), \
+                    task_trace(profile_here, trace_name) as trace_path:
+                if fused:
+                    pending = self._run_epoch_fused(task_id, len(task_train), resident, epoch,
+                                                    gen, clock, task_digest)
+                    # The fused epoch has no per-step fire site: settle the
+                    # step-level clauses now that the step count is known,
+                    # before the epoch-checkpoint hook, so a reconciled kill
+                    # at step S resumes from the previous epoch's checkpoint,
+                    # as a kill inside the epoch would.
+                    if self.faults is not None:
+                        self.faults.reconcile_steps("engine.step", task=task_id,
+                                                    epoch=epoch + 1, steps=len(pending))
+                else:
+                    pending = self._run_epoch_steps(task_id, task_train, epoch, gen, clock)
+                if trace_path and self.device.type == "cuda":
+                    # The last steps' kernels land inside the trace window.
+                    torch.cuda.synchronize(self.device)
+            if trace_path:
+                print(f"profiler trace captured under {trace_path}")
+                self.jsonl.log("profile_trace", task_id=task_id, name=trace_name,
+                               path=trace_path)
             logger = MetricLogger(delimiter="  ")
             for m in pending:
                 logger.update(**m)
             print(f"train states: epoch :[{epoch + 1}/{cfg.num_epochs}] {logger}")
+            # The first executed epoch captures the task's graph; a capture
+            # at any later epoch is a rebinding leak and warns.
+            tel.recompiles.check(where=f"task{task_id}/epoch{epoch + 1}", expected=first,
+                                 group="train", task_id=task_id, epoch=epoch + 1)
+            if watch_before is not None:
+                self.jsonl.log(
+                    "compile_event",
+                    task_id=task_id,
+                    epoch=epoch + 1,
+                    resumed=bool(self.resumed_from is not None
+                                 and task_id == self.start_task),
+                    **CompileWatch.delta(watch_before, self._compile_watch.snapshot()),
+                )
+            clock_snap = clock.snapshot()
             self.jsonl.log(
                 "epoch",
                 task_id=task_id,
@@ -459,11 +660,15 @@ class CilTrainer:
                 lr=lr,
                 epoch_s=round(time.perf_counter() - t_epoch, 2),
                 steps=len(pending),
-                **clock.snapshot(),
+                **clock_snap,
                 fused=fused,
                 graphed=fused and self.epoch_fn.graphed,
                 **{k: m.global_avg for k, m in logger.meters.items()},
             )
+            self._m_epochs.inc()
+            self._m_stall.set(clock_snap.get("stall_frac", 0.0))
+            self._m_recompiles.set(tel.recompiles.total())
+            tel.heartbeat.update(force=True, task=task_id, epoch=epoch + 1)
             self._save_epoch_checkpoint(task_id, epoch + 1, nb_new)
             # After the checkpoint hook: kill@taskT.epochE leaves epoch E's
             # checkpoint on disk, and the relaunch resumes right there.
@@ -479,7 +684,8 @@ class CilTrainer:
         """The epoch's shuffle, the same on every rank and on both paths."""
         return hash((self.config.seed, task_id, epoch)) & 0x7FFFFFFF
 
-    def _run_epoch_fused(self, task_id, n, resident, epoch, gen, clock) -> List[Dict]:
+    def _run_epoch_fused(self, task_id, n, resident, epoch, gen, clock,
+                         task_digest: Optional[str] = None) -> List[Dict]:
         """The epoch through the fused epoch function on the resident
         dataset; the table goes to the device once and the metrics come back
         in one fetch."""
@@ -488,11 +694,26 @@ class CilTrainer:
             table = epoch_index_table(n, self.global_batch_size,
                                       self._shuffle_seed(task_id, epoch))
             table = to_device(self.device, table)[0]
+        if self.lockstep is not None:
+            self.lockstep.check(
+                "train_epoch_fused",
+                program="epoch_fn_kd" if self.teacher is not None else "epoch_fn",
+                args=(data_x, data_y, table), digest=task_digest, rng=(task_id, epoch),
+                step=self.global_step + 1, task=task_id, epoch=epoch + 1,
+            )
         with clock.device():
             rows = self.epoch_fn(self.state, self.teacher, data_x, data_y, table, gen,
                                  self._lr, self._lam)
             host = rows.cpu().numpy()  # waits for the epoch's steps
-        self.global_step += len(host)
+        steps = len(host)
+        self.global_step += steps
+        # One observation an epoch: the host's wall a step (its replays and
+        # its one fetch over its steps); the per-step times never reach it.
+        avg_step_ms = clock.device_s / max(steps, 1) * 1e3
+        self._m_steps.inc(steps)
+        self._m_step_ms.observe(avg_step_ms)
+        self.telemetry.heartbeat.update(step=self.global_step,
+                                        last_step_ms=round(avg_step_ms, 2))
         return [dict(zip(METRICS, row)) for row in host]
 
     def _run_epoch_steps(self, task_id, task_train, epoch, gen, clock) -> List[Dict]:
@@ -502,6 +723,18 @@ class CilTrainer:
         prefetcher's thread and ``clock`` gets only the time the loop waits
         for them."""
         rows = []
+        hb = self.telemetry.heartbeat
+        seed = self._shuffle_seed(task_id, epoch)
+        table = None
+        if self.lockstep is not None:
+            from analysis.lockstep import data_digest
+
+            # The digest is of the global batch, which every rank holds on
+            # the host and takes its stripe of: the ranks' digests agree
+            # exactly when their pipelines do.  (A rank's own stripe differs
+            # from its peers' by design, so JAX's digest of it, JAX
+            # engine/loop.py:930, cannot match across processes.)
+            table = epoch_index_table(len(task_train), self.global_batch_size, seed)
 
         def placed(item):
             step_idx, (xb, yb) = item
@@ -510,19 +743,37 @@ class CilTrainer:
             if self.faults is not None:
                 self.faults.fire("data.produce", task=task_id, epoch=epoch + 1,
                                  step=step_idx + 1)
-            return self._to_device(xb, yb)
+            digest = None
+            if table is not None:  # on the producer thread at depth > 0
+                idx = table[step_idx]
+                digest = data_digest(task_train.x[idx], task_train.y[idx])
+            return (*self._to_device(xb, yb), digest)
 
-        source = enumerate(train_batches(task_train, self.global_batch_size,
-                                         self._shuffle_seed(task_id, epoch), self.axis.rank,
-                                         self.axis.size))
+        source = enumerate(train_batches(task_train, self.global_batch_size, seed,
+                                         self.axis.rank, self.axis.size))
         with self._prefetcher(source, placed, clock, "train", task_id=task_id,
                               epoch=epoch + 1) as batches:
-            for x, y in batches:
+            for x, y, digest in batches:
+                t_step = time.perf_counter()
+                if self.lockstep is not None:
+                    # Before the dispatch: a mismatch surfaces while every
+                    # rank is still outside the step's collectives.
+                    self.lockstep.check(
+                        "train_step",
+                        program="train_step_kd" if self.teacher is not None else "train_step",
+                        args=(x, y), digest=digest, rng=(task_id, epoch, len(rows)),
+                        step=self.global_step + 1, task=task_id, epoch=epoch + 1,
+                    )
                 with clock.device():
                     metrics = self.train_step(self.state, self.teacher, x, y, gen,
                                               self._lr, self._lam)
                 rows.append(torch.stack([metrics[k] for k in METRICS]))
                 self.global_step += 1
+                step_ms = (time.perf_counter() - t_step) * 1e3
+                self._m_steps.inc()
+                self._m_step_ms.observe(step_ms)
+                hb.update(step=self.global_step, task=task_id, epoch=epoch + 1,
+                          last_step_ms=round(step_ms, 2))
                 # After the step's dispatch: a kill at step S keeps steps < S.
                 if self.faults is not None:
                     self.faults.fire("engine.step", task=task_id, epoch=epoch + 1,
@@ -539,7 +790,7 @@ class CilTrainer:
 
         return DevicePrefetcher(source, place, self.config.prefetch_depth, clock=clock,
                                 name=f"prefetch-{where}", on_degrade=degraded,
-                                device=self.device)
+                                device=self.device, metrics=self.telemetry.metrics)
 
     # ------------------------------------------------------------------ #
     # Eval
@@ -558,6 +809,10 @@ class CilTrainer:
                               self.axis.size)
         with self._prefetcher(source, lambda b: self._to_device(*b), None, "eval") as batches:
             for x, y, w in batches:
+                if self.lockstep is not None:
+                    # Shapes and counts only: a digest would fetch the batch.
+                    self.lockstep.check("eval_step", program=f"eval_step@known{self.known}",
+                                        args=(x, y, w))
                 out = self.eval_step(self.state.model, x, y, w, self.state.num_active)
                 totals = out if totals is None else totals + out
         return totals
@@ -582,6 +837,9 @@ class CilTrainer:
         with self._prefetcher(source, lambda b: self._to_device(b[0]), None, "herd",
                               task_id=task_id) as batches:
             for (x,) in batches:
+                if self.lockstep is not None:
+                    self.lockstep.check("feature_step", program="feature_step", args=(x,),
+                                        task=task_id)
                 feats.append(self.feature_step(self.state.model, x, gen))
         features = torch.cat(feats).cpu().numpy()[: len(task_train)]
         self.memory.add(*task_train.get_raw_samples(), features)
@@ -609,7 +867,8 @@ class CilTrainer:
             "task_id": nxt,
             "prefetcher": DevicePrefetcher(
                 iter([(warm_train.x, warm_train.y)]), lambda b: self._to_device(*b),
-                depth=1, name=f"prefetch-taskwarm-t{nxt}", device=self.device),
+                depth=1, name=f"prefetch-taskwarm-t{nxt}", device=self.device,
+                metrics=self.telemetry.metrics),
             "t0": time.perf_counter(),
             "y": warm_train.y,
             "x_probe": warm_train.x[::stride].copy(),

@@ -31,6 +31,7 @@ and it averages where this convention sums.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Union
 
@@ -43,6 +44,7 @@ from ..models import CilModel
 from ..ops import fused_masked_cross_entropy, sharded_fused_masked_cross_entropy
 from ..ops.precision import Policy, kernel_policy_compatible
 from ..parallel.mesh import DataAxis, all_reduce_sum
+from ..telemetry.compilewatch import CompileWatch
 from .losses import accuracy, cross_entropy, soft_target_kd, topk_correct
 
 Scalar = Union[float, torch.Tensor]
@@ -203,7 +205,9 @@ def make_train_step(
 class EpochFn:
     """One epoch of train steps over a task's dataset held on the device;
     built by :func:`make_epoch_fn`.  ``captures`` counts the CUDA graphs
-    captured so far."""
+    captured so far; :meth:`_cache_size` gives it to the telemetry's
+    ``RecompileMonitor`` as JAX's jitted functions give their cache size,
+    and each capture is priced in ``telemetry.compilewatch``."""
 
     def __init__(self, step, axis: DataAxis, graphed: bool):
         self._step = step
@@ -222,6 +226,11 @@ class EpochFn:
         dataset or generator); writing into them in place (``fill_``,
         ``copy_``, ``manual_seed``) needs no reset."""
         self._graph = self._out = self._idx = None
+
+    def _cache_size(self) -> int:
+        """The programs this function compiled: the CUDA graphs captured so
+        far (0 on the CPU and at N > 1 ranks, where steps run eagerly)."""
+        return self.captures
 
     def _run_step(self, state, teacher, data_x, data_y, idx, generator, lr, lambda_kd):
         m = self._step(state, teacher, data_x[idx], data_y[idx], generator, lr, lambda_kd)
@@ -257,12 +266,15 @@ class EpochFn:
         start = 0
         if self._graph is None:
             # Step 0 runs eagerly (a real step, and the capture's warm-up) on
-            # the static index row, then the step is captured.
+            # the static index row, then the step is captured; the two are
+            # the capture's cost (the capture synchronizes on entry).
+            t0 = time.perf_counter()
             self._idx = torch.empty(b, dtype=torch.int64, device=data_x.device)
             self._idx.copy_(cols[0])
             rows[0].copy_(self._run_step(state, teacher, data_x, data_y, self._idx, generator,
                                          lr, lambda_kd))
             self._capture(state, teacher, data_x, data_y, generator, lr, lambda_kd)
+            CompileWatch.install().record_capture(time.perf_counter() - t0)
             start = 1
         for s in range(start, steps):
             self._idx.copy_(cols[s])

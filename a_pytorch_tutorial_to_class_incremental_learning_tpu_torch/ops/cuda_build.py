@@ -15,7 +15,9 @@ either absent or whole, and one process compiles it.  The ``ptxas`` report
 ``SIGNATURES`` gives every exported function's ctypes types, set on the
 library when it loads: without ``argtypes`` ctypes passes a pointer as a
 32-bit int and cuts it.  Pointers and the stream are ``c_void_p``.  This
-module imports nothing but the standard library.
+module imports nothing but the standard library; :func:`load` reports each
+build, or a library found built, to the stdlib-only
+``telemetry/compilewatch.py`` (a ``compile_event``'s build or cache hit).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Mapping, Optional
 
@@ -138,7 +141,12 @@ def build(name: str, *, nvcc: Optional[str] = None, build_root: Path = BUILD_ROO
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built if needed and loaded once a
     process, with every exported function's ctypes types set."""
+    from ..telemetry.compilewatch import CompileWatch
+
+    cached = library_path(name).exists()
+    t0 = time.perf_counter()
     lib = ctypes.CDLL(str(build(name)))
+    CompileWatch.install().record_build(time.perf_counter() - t0, cache_hit=cached)
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.restype, f.argtypes = restype, argtypes

@@ -523,8 +523,17 @@ def load_task_checkpoint(trainer, path: Optional[str] = None) -> bool:
     trainer.start_task = payload["task_id"] + 1
     trainer.start_epoch = 0
     trainer.resumed_from = {"path": path, "kind": "task"}
+    _note_restore(trainer, payload)
     print(f"| resumed from {path}: next task {trainer.start_task}, known={known}")
     return True
+
+
+def _note_restore(trainer, payload: dict) -> None:
+    """A restore grants ``--recompile_budget`` one more program: the
+    resumed task captures its graph anew."""
+    sentinel = getattr(trainer, "recompile_sentinel", None)
+    if sentinel is not None:
+        sentinel.note_event("restore", task_id=payload["task_id"])
 
 
 def _restore_epoch(trainer, path: str, payload: dict) -> bool:
@@ -547,6 +556,7 @@ def _restore_epoch(trainer, path: str, payload: dict) -> bool:
     trainer.start_epoch = int(payload["epoch"])
     trainer.global_step = int(payload.get("global_step", 0))
     trainer.resumed_from = {"path": path, "kind": "epoch"}
+    _note_restore(trainer, payload)
     print(
         f"| resumed from {path}: task {trainer.start_task} at epoch "
         f"{trainer.start_epoch + 1}, known={known}+{nb_new}"

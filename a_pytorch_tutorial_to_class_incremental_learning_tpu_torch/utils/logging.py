@@ -70,6 +70,23 @@ class SmoothedValue:
         )
 
 
+class Sink:
+    """The one record interface, ``log(record_type, **fields)``: the
+    experiment log, the telemetry counters, the flight recorder's tee and
+    the sentinels all emit through it, so one vocabulary reaches
+    ``scripts/check_telemetry_schema.py``."""
+
+    def log(self, record_type: str, **fields) -> None:  # pragma: no cover
+        raise NotImplementedError
+
+
+class NullSink(Sink):
+    """Swallows every record (telemetry off)."""
+
+    def log(self, record_type: str, **fields) -> None:
+        pass
+
+
 def process_suffixed(path: str | None, process_index: int) -> str | None:
     """Per-process sibling of ``path``: process 0 keeps the name
     (``run.jsonl``), process *i* > 0 writes ``run_p{i}.jsonl``."""
@@ -79,7 +96,7 @@ def process_suffixed(path: str | None, process_index: int) -> str | None:
     return f"{root}_p{process_index}{ext}"
 
 
-class JsonlLogger:
+class JsonlLogger(Sink):
     """Structured experiment log; disabled when ``path`` is falsy.  Each
     process writes its own file, and every record carries its
     ``process_index``/``process_count``."""

@@ -62,7 +62,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    in the CLI's order, and the trained model's eval forward on the card
    agree with the same model on the CPU.  The median step (and that of the
    replay-only epochs), the profiled epoch's kernels a step and the card's
-   busy share are printed.
+   busy share are printed.  The run has ``--telemetry_dir``,
+   ``--heartbeat_path`` and ``--recompile_budget`` on: native herding must
+   be in use (``csrc/cil_host.cpp`` built or found under ``build/host/``),
+   each task must log one ``compile_event`` whose ``compiles`` is its
+   capture, one expected ``recompile`` and one ``hbm`` record with memory
+   in use, every ``recompile_budget`` must be ok, the spans one level below
+   each ``task`` must cover 90% of it (each child's share is printed: the
+   fit's breakdown), the heartbeat must be fresh, and ``spans.jsonl``,
+   ``trace.json`` and a ``flight_0.json`` dumped at close must exist.
+   Then herding: one class of task 0 (its real features) through the
+   native and the numpy greedy on this host, at the memory's quota and at
+   20: equal selections, and each call's median host time.
    Then the precision presets: for each of f32, bf16_all and
    bf16_selective, 30 train steps at full width (resnet32, 100-wide head,
    B=128, a teacher, RandAugment, the CUDA kernels): the median step ms,
@@ -72,10 +83,15 @@ Phases, in order; any failure exits non-zero before the result lines:
    path again under ``--precision bf16_selective``, 1 epoch a task.
    Then the fused phase: the main path's recipe under deterministic cuDNN,
    (a) fused and graphed, (b) ``--no_fused_epochs``, (c) ``--no_fused_epochs
-   --prefetch_depth 2``, (d) fused with ``--prefetch_depth 1``: all four
-   must end bitwise equal (every ``state_dict`` tensor, acc1s, γ, the
-   matrix), (a) and (d) capture 6 graphs, (d) logs 5 ``prefetch_warm``
-   hits; each run's median step, fit wall and captures are printed.
+   --prefetch_depth 2``, (d) fused with ``--prefetch_depth 1``, (e) fused
+   with ``--telemetry_dir``, ``--heartbeat_path``, ``--profile_dir`` (each
+   task's first epoch, its capture included, under ``torch.profiler``),
+   ``--recompile_budget``, ``--check_threads`` and ``--check_contracts``:
+   all five must end bitwise equal (every ``state_dict`` tensor, acc1s, γ,
+   the matrix), (a), (d) and (e) capture 6 graphs, (d) logs 5
+   ``prefetch_warm`` hits, (e) writes 6 traces and no violation or warning;
+   each run's median step, fit wall and captures are printed, and (e)'s
+   replayed step and fit beside (a)'s.
 4. Data parallel: two ranks started with ``torch.multiprocessing``, on
    ``nccl`` with a card each where there are two cards, else on ``gloo``
    with both ranks on the one card (NCCL refuses two ranks on one device).
@@ -96,9 +112,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    kernels: a hard check).
    (b) Protocol: the race recipe at 2 ranks x 64 rows, 1 epoch a task, 6
    tasks, through the CLI's trainer on the fused epoch, run eagerly (gloo's
-   collectives cannot be captured): the record sequence, finite losses,
-   γ > 0 after task 0, kernel runs per rank equal to the train steps,
-   and the same memory on both ranks.
+   collectives cannot be captured), under ``--check_lockstep``: the record
+   sequence, finite losses, γ > 0 after task 0, kernel runs per rank equal
+   to the train steps, the same memory on both ranks, native herding on
+   both, and every lockstep fingerprint (one a fused epoch, one a val and a
+   herding batch) equal across the ranks: no violation.
 5. Durability: the main path's recipe (``synthetic_hard128``, resnet32,
    100-wide head, batch 128, B50-inc10, 6 tasks, memory 256, RandAugment,
    the CUDA kernels, the fused and graphed epoch) at 2 epochs a task with
@@ -113,7 +131,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    bitwise: acc1s, the accuracy matrix, γ at every alignment and the final
    ``state_dict``; its log must be the twin's plus ``fault_injected`` and
    the relaunch's ``run`` and ``resume``; in the resumed child each CUDA
-   kernel must run once per train step it runs.  (c) Round trip, in this
+   kernel must run once per train step it runs.  The chaos leg runs with
+   ``--telemetry_dir``: the killed child's ``flight_0.json``, dumped by the
+   fault injector's ``on_fatal`` just before the SIGKILL (reason
+   ``fatal``, the ``fault_injected`` record in its ring), must reach the
+   supervisor's ``crash_report.json``.  (c) Round trip, in this
    process: an epoch checkpoint (task 1, epoch 1: momentum, teacher, memory)
    and a task checkpoint are saved and restored into a new trainer, and
    every state tensor, the memory and the counters must come back bitwise.
@@ -121,7 +143,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    are printed beside the card.
 6. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
    line, a ``{"durability": ...}`` line, a ``{"fused": ..., "main_path":
-   ...}`` line, the card's name and power limit, a
+   ..., "herding": ...}`` line, the card's name and power limit, a
    ``{"kernels": [...]}`` line, then the card line ``{"ok": true,
    "device": {...}}`` last.
 
@@ -175,15 +197,27 @@ RACE_ARGV = ["--data_set", "synthetic_hard128", "--backbone", "resnet32",
 DURABLE_ARGV = [*RACE_ARGV, "--batch_size", "128", "--num_epochs", "2",
                 "--epoch_ckpt_every", "1"]
 DURABLE_KILL = "kill@task2.epoch1"
+# The race gate's reference log (PERF.md §2), and the train CE at or above
+# which a task-0 epoch counts as on the plateau of the uniform prediction
+# (ln 50 = 3.912).
+RACE_REFERENCE = "experiments/b50_inc10_synthetic_hard128_aa35_mem256.jsonl"
+PLATEAU_CE = 3.85
 DURABLE_LEG_S = 420        # a leg's time limit
 AUG_SEED = 100             # parity step i augments with a generator seeded AUG_SEED + i
 AUG_B = 128                # the augment phase's batch (the train step's)
 INTEGER_OPS = (1, 2, 4, 5, 6)  # Equalize, Invert, Posterize, Solarize, SolarizeAdd
 PRECISION_STEPS = 30
-# The fused phase's four runs of the main path's recipe.
+# The fused phase's five runs of the main path's recipe ("{tmp}": the run's
+# own directory).
+TELEMETRY_FLAGS = ["--telemetry_dir", "{tmp}/tel", "--heartbeat_path", "{tmp}/hb/heartbeat.json",
+                   "--profile_dir", "{tmp}/prof", "--recompile_budget", "--check_threads",
+                   "--check_contracts"]
 FUSED_RUNS = {"fused": [], "per_step": ["--no_fused_epochs"],
               "per_step_prefetch2": ["--no_fused_epochs", "--prefetch_depth", "2"],
-              "fused_prefetch1": ["--prefetch_depth", "1"]}
+              "fused_prefetch1": ["--prefetch_depth", "1"],
+              "fused_telemetry": TELEMETRY_FLAGS}
+HERD_REPEATS = 20          # timed calls of each herding path
+SPAN_COVERAGE = 0.90       # the share of a task span its children must cover
 
 
 CARD = ""  # the card's name and power limit (nvidia-smi), printed beside every time
@@ -434,13 +468,17 @@ def _profile(torch, fn, n=100):
     ``torch.profiler``: {kernel or copy name: [count, device µs]}."""
     from torch.profiler import ProfilerActivity, profile
 
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.profiling import (
+        kernel_table,
+    )
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return _count_kernels(prof)
+    return kernel_table(prof)
 
 
 def _profiled_ms(torch, fn, kernel: str, n=100):
@@ -638,44 +676,37 @@ def _check_counts(what: str, counts: dict, steps: int, captures: int) -> None:
           f"{counts['calls']}) for {steps} train steps and {captures} graph captures")
 
 
-def _count_kernels(prof) -> dict:
-    """{kernel name: [count, device µs]} of a profile's device events."""
-    from torch.autograd import DeviceType
-
-    out = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            entry = out.setdefault(evt.name, [0, 0.0])
-            entry[0] += 1
-            entry[1] += evt.time_range.elapsed_us()
-    return out
-
-
 def _profile_epoch(torch, trainer, task_id, epoch):
     """Wrap the trainer's fused epoch so that epoch ``epoch`` of task
     ``task_id`` runs under ``torch.profiler``; the returned dict gets that
-    epoch's kernels (``{name: [count, device µs]}``), its steps, its
-    synchronized wall ms and the fused-CE kernels' own counts of their runs
-    in it (``ran``)."""
+    epoch's kernels (``{name: [count, device µs]}``), its steps, the card's
+    busy ms a step (``utils/profiling.device_step_ms``), its synchronized
+    wall ms and the fused-CE kernels' own counts of their runs in it
+    (``ran``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.profiling import (
+        device_step_ms,
+        kernel_table,
+    )
 
     seen = {}
     run = trainer._run_epoch_fused
 
-    def profiled(t, n, resident, e, gen, clock):
+    def profiled(t, n, resident, e, gen, clock, *rest):
         if (t, e) != (task_id, epoch):
-            return run(t, n, resident, e, gen, clock)
+            return run(t, n, resident, e, gen, clock, *rest)
         ran = fl.device_launches()  # waits for the queued work
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rows = run(t, n, resident, e, gen, clock)
+            rows = run(t, n, resident, e, gen, clock, *rest)
             torch.cuda.synchronize()
             seen["wall_ms"] = 1e3 * (time.perf_counter() - t0)
         seen["ran"] = [b - a for a, b in zip(ran, fl.device_launches())]
-        seen["kernels"] = _count_kernels(prof)
+        seen["kernels"] = kernel_table(prof)
         seen["steps"] = len(rows)
+        seen["busy_ms_per_step"] = device_step_ms(prof, len(rows))["trace_step_ms"]
         return rows
 
     trainer._run_epoch_fused = profiled
@@ -688,19 +719,88 @@ def _named(kernels: dict, name: str):
     return sum(c for c, _ in hits), sum(us for _, us in hits)
 
 
+# The records the CLI writes under every flag set, in order; the telemetry's
+# own (compile_event, recompile, hbm, metrics_snapshot, ...) come between.
+CORE_RECORDS = ("run", "resume", "fault_injected", "epoch", "task", "cil_metrics", "final")
+
+
+def _check_telemetry(records, spans, nb_tasks: int, captures: int) -> dict:
+    """The main path's telemetry: one ``compile_event`` a task whose
+    ``compiles`` are its capture, every ``recompile_budget`` ok, one ``hbm``
+    record a task with memory in use, and the spans one level below each
+    ``task`` covering ``SPAN_COVERAGE`` of it.  Returns each task's wall and
+    its children's shares (the fit's breakdown)."""
+    of = lambda kind: [r for r in records if r["type"] == kind]  # noqa: E731
+    events, budgets, hbm = of("compile_event"), of("recompile_budget"), of("hbm")
+    check([r["task_id"] for r in events] == list(range(nb_tasks))
+          and [r["compiles"] for r in events] == [1] * nb_tasks
+          and sum(r["compiles"] for r in events) == captures,
+          f"compile_event records {[(r['task_id'], r['compiles']) for r in events]} "
+          f"for {captures} captures")
+    check(len(budgets) == nb_tasks and all(r["ok"] for r in budgets),
+          f"recompile_budget records {budgets}")
+    check([r["task_id"] for r in of("recompile")] == list(range(nb_tasks))
+          and all(r["expected"] for r in of("recompile")) and not of("recompile_warning"),
+          f"recompile records {of('recompile')}")
+    in_use = [dev["bytes_in_use"] for r in hbm for dev in r["devices"].values()]
+    check(len(hbm) == nb_tasks and len(in_use) == nb_tasks and all(b > 0 for b in in_use),
+          f"hbm records {hbm}")
+    tasks = [sp for sp in spans if sp["name"] == "task"]
+    check(len(tasks) == nb_tasks and all(sp["depth"] == 1 for sp in tasks),
+          f"task spans {[(sp['name'], sp['depth']) for sp in tasks]}")
+    shares, task_s = [], []
+    for t in tasks:
+        kids = {}
+        for sp in spans:
+            if sp["parent"] == t["span_id"]:
+                kids[sp["name"]] = kids.get(sp["name"], 0.0) + sp["dur_s"] / t["dur_s"]
+        check(sum(kids.values()) >= SPAN_COVERAGE,
+              f"task {t['task']}'s children cover {100 * sum(kids.values()):.1f}% of it")
+        shares.append(kids)
+        task_s.append(t["dur_s"])
+    return {"shares": shares, "task_s": task_s, "compiles": [r["compiles"] for r in events],
+            "compile_s": [r["compile_s"] for r in events], "hbm": in_use}
+
+
 def phase_main_path(torch):
+    import numpy as np
+
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import (
         triton_fused_loss as tfl,
     )
 
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.telemetry import (
+        read_heartbeat,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import native
+
     epochs = 2
     with tempfile.TemporaryDirectory() as tmp:
         log = os.path.join(tmp, "smoke.jsonl")
+        tel, hb_path = os.path.join(tmp, "tel"), os.path.join(tmp, "hb", "heartbeat.json")
         trainer = build_trainer([
             *RACE_ARGV, "--batch_size", "128", "--num_epochs", str(epochs), "--log_file", log,
+            "--telemetry_dir", tel, "--heartbeat_path", hb_path, "--recompile_budget",
         ])
+        # Native herding on this host: the library built (or found built)
+        # under build/host/ and the memory set to use it.
+        lib = native.load_native()
+        check(lib is not None and trainer.memory.prefer_native
+              and os.path.dirname(os.path.dirname(lib._name)) == str(native.BUILD_ROOT),
+              f"native herding is off on the card's host (library {lib}, prefer_native "
+              f"{trainer.memory.prefer_native})")
+        # Task 0's herding input, for the herding phase.
+        herd_input = {}
+        add = trainer.memory.add
+
+        def keep_first(x, y, t, features):
+            herd_input.setdefault("y", np.array(y))
+            herd_input.setdefault("features", np.array(features))
+            return add(x, y, t, features)
+
+        trainer.memory.add = keep_first
         check(trainer.aug_cfg.rand_augment and trainer.aug_cfg.ra_num_ops == 2,
               f"the main path does not run the parser's RandAugment: {trainer.aug_cfg}")
         check(trainer.config.fused_epochs and trainer.epoch_fn.graphed,
@@ -724,16 +824,25 @@ def phase_main_path(torch):
         launches = {"fwd": counts["ran"][0], "bwd": counts["ran"][1], "calls": counts["calls"],
                     "triton_fwd": tfl.FWD_LAUNCHES, "triton_bwd": tfl.BWD_LAUNCHES}
         records = [json.loads(ln) for ln in open(log)]
+        beat = read_heartbeat(hb_path, max_age_s=2 * trainer.config.heartbeat_interval_s)
+        files = sorted(os.listdir(tel))
+        spans = [json.loads(ln) for ln in open(os.path.join(tel, "spans.jsonl"))]
+        flight = json.load(open(os.path.join(tel, "flight_0.json")))
 
     steps = trainer.global_step
     # Counted where the kernels run: every replay of a captured step.
     _check_counts("main path", counts, steps, trainer.epoch_fn.captures)
     check(launches["triton_fwd"] == launches["triton_bwd"] == 0,
           f"the main path launched Triton kernels: {launches}")
-    types = [r["type"] for r in records]
+    types = [r["type"] for r in records if r["type"] in CORE_RECORDS]
     nb_tasks = result["nb_tasks"]
     want = ["run"] + (["epoch"] * epochs + ["task", "cil_metrics"]) * nb_tasks + ["final"]
     check(nb_tasks == 6 and types == want, f"record sequence {types}")
+    telemetry = _check_telemetry(records, spans, nb_tasks, trainer.epoch_fn.captures)
+    check(beat.get("fresh") is True and beat.get("task") == nb_tasks - 1,
+          f"the heartbeat is stale or behind: {beat}")
+    check({"spans.jsonl", "trace.json", "flight_0.json"} <= set(files)
+          and flight["reason"] == "close", f"telemetry files {files}, flight {flight['reason']}")
     epochs_rec = [r for r in records if r["type"] == "epoch"]
     check(all(r["fused"] is True and r["graphed"] is True for r in epochs_rec),
           "the main path's epochs are not fused and graphed")
@@ -750,7 +859,7 @@ def phase_main_path(torch):
     check(fwd_n == bwd_n == profiled["steps"] > 0 and profiled["ran"] == [fwd_n, bwd_n],
           f"the profiler saw {fwd_n} forward and {bwd_n} backward kernels in an epoch of "
           f"{profiled['steps']} replayed steps, the kernels counted {profiled['ran']}")
-    busy_us = sum(us for _, us in profiled["kernels"].values())
+    busy_ms = profiled["busy_ms_per_step"]
     kernels_per_step = sum(c for c, _ in profiled["kernels"].values()) / profiled["steps"]
     tasks = [r for r in records if r["type"] == "task"]
     check(tasks[0]["gamma"] is None and all(t["gamma"] > 0 for t in tasks[1:]),
@@ -789,23 +898,70 @@ def phase_main_path(torch):
           f"{profiled['wall_ms']:.1f} ms synchronized wall): fused_ce_fwd_sm90 x{fwd_n} "
           f"({fwd_us / max(fwd_n, 1) / 1e3:.7f} ms each), fused_ce_bwd_sm90 x{bwd_n} "
           f"({bwd_us / max(bwd_n, 1) / 1e3:.7f} ms each); {kernels_per_step:.1f} kernels "
-          f"a step, device busy {busy_us / 1e3 / profiled['steps']:.3f} ms a step, "
-          f"{100 * busy_us / 1e3 / profiled['wall_ms']:.1f}% of the wall [{CARD}]")
+          f"a step, device busy {busy_ms:.3f} ms a step, "
+          f"{100 * busy_ms * profiled['steps'] / profiled['wall_ms']:.1f}% of the wall [{CARD}]")
     for name, per_step, ms in top:
         print(f"[main]   {ms:.4f} ms a step in {per_step:g} launches of {name}")
     print(f"[main] acc1 per task: {[round(a, 3) for a in result['acc1s']]}")
     print(f"[main] gammas: {[t['gamma'] for t in tasks]}")
+    for t, shares in enumerate(telemetry["shares"]):
+        print(f"[main] task {t} {telemetry['task_s'][t]:.3f} s: "
+              + ", ".join(f"{name} {100 * v:.1f}%" for name, v in shares.items())
+              + f" [{CARD}]")
+    print(f"[main] telemetry: {nb_tasks} compile_event (compiles {telemetry['compiles']}, "
+          f"compile_s {telemetry['compile_s']}), recompile_budget ok, hbm bytes_in_use "
+          f"{telemetry['hbm']}, heartbeat seq {beat['seq']} fresh, flight_0.json at close; "
+          f"native herding {lib._name}")
     launches.update(step_ms=step_ms, replay_step_ms=replay_ms, fit_s=wall_s,
-                    captures=trainer.epoch_fn.captures,
+                    captures=trainer.epoch_fn.captures, telemetry=telemetry,
+                    herd_input=herd_input, quota=trainer.memory.quota(50),
                     profiled={"steps": profiled["steps"], "wall_ms": profiled["wall_ms"],
                               "fwd": fwd_n, "bwd": bwd_n,
                               "fwd_device_ms": fwd_us / max(fwd_n, 1) / 1e3,
                               "bwd_device_ms": bwd_us / max(bwd_n, 1) / 1e3,
                               "kernels_per_step": kernels_per_step,
-                              "busy_ms_per_step": busy_us / 1e3 / profiled["steps"],
-                              "busy_share": busy_us / 1e3 / profiled["wall_ms"],
+                              "busy_ms_per_step": busy_ms,
+                              "busy_share": busy_ms * profiled["steps"] / profiled["wall_ms"],
                               "top_kernels": top})
     return launches
+
+
+def phase_herding(main) -> dict:
+    """One class's herding call of the main path's task 0 (its real
+    features, the memory's quota, and 20 for the JAX package's bench) on
+    this host, native against numpy, timed in turns: equal selections."""
+    import numpy as np
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.memory import (
+        herd_barycenter,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.native import (
+        herd_barycenter_native,
+    )
+
+    y, feats = main["herd_input"]["y"], main["herd_input"]["features"]
+    cls = int(np.unique(y)[0])
+    f = np.ascontiguousarray(feats[y == cls], dtype=np.float32)
+    out = {"n": int(f.shape[0]), "d": int(f.shape[1])}
+    for nb in (main["quota"], 20):
+        native = herd_barycenter_native(f, nb)
+        plain = herd_barycenter(f, nb, allow_native=False)
+        check(native is not None and np.array_equal(native, plain),
+              f"native herding selects {native} where numpy selects {plain} (nb={nb})")
+        times = {"native": [], "numpy": []}
+        for _ in range(HERD_REPEATS):
+            for name, fn in (("native", lambda: herd_barycenter_native(f, nb)),
+                             ("numpy", lambda: herd_barycenter(f, nb, allow_native=False))):
+                t0 = time.perf_counter()
+                fn()
+                times[name].append(1e3 * (time.perf_counter() - t0))
+        row = {k: statistics.median(v) for k, v in times.items()}
+        out[f"nb{nb}"] = {"native_ms": row["native"], "numpy_ms": row["numpy"],
+                          "selections_equal": True}
+        print(f"[herd] class {cls} of task 0: n={f.shape[0]} d={f.shape[1]} nb={nb}: native "
+              f"{row['native']:.4f} ms, numpy {row['numpy']:.4f} ms a call (median of "
+              f"{HERD_REPEATS}, host clock); selections equal [{CARD}]")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1007,7 +1163,7 @@ def phase_precision(torch):
         records = [json.loads(ln) for ln in open(log)]
     steps = trainer.global_step
     counts = _counts(fl)
-    types = [r["type"] for r in records]
+    types = [r["type"] for r in records if r["type"] in CORE_RECORDS]
     check(types == ["run"] + ["epoch", "task", "cil_metrics"] * 6 + ["final"],
           f"bf16_selective run: record sequence {types}")
     check(records[0]["precision"] == "bf16_selective", f"run record {records[0]}")
@@ -1040,10 +1196,13 @@ def _deterministic_cudnn(torch, on: bool) -> None:
 
 
 def phase_fused(torch):
-    """The main path's recipe under deterministic cuDNN, four ways: (a) the
+    """The main path's recipe under deterministic cuDNN, five ways: (a) the
     fused, graphed epoch, (b) ``--no_fused_epochs``, (c) ``--no_fused_epochs
     --prefetch_depth 2``, (d) fused with ``--prefetch_depth 1`` (the warm
-    ring); all four must end bitwise equal."""
+    ring), (e) fused with every telemetry flag on (``TELEMETRY_FLAGS``); all
+    five must end bitwise equal."""
+    from analysis import contractcheck, threadcheck
+
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
 
@@ -1053,15 +1212,25 @@ def phase_fused(torch):
         for name, flags in FUSED_RUNS.items():
             with tempfile.TemporaryDirectory() as tmp:
                 log = os.path.join(tmp, "run.jsonl")
-                trainer = build_trainer([*RACE_ARGV, "--batch_size", "128", "--num_epochs",
-                                         "2", *flags, "--log_file", log])
-                torch.cuda.synchronize()
-                fl.reset_launches()
-                t0 = time.perf_counter()
-                result = trainer.fit()
-                torch.cuda.synchronize()
-                wall_s = time.perf_counter() - t0
+                flags = [f.replace("{tmp}", tmp) for f in flags]
+                try:
+                    trainer = build_trainer([*RACE_ARGV, "--batch_size", "128",
+                                             "--num_epochs", "2", *flags, "--log_file", log])
+                    torch.cuda.synchronize()
+                    fl.reset_launches()
+                    t0 = time.perf_counter()
+                    result = trainer.fit()
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t0
+                    violations = [v for mod in (contractcheck, threadcheck) if mod.active()
+                                  for v in mod.active().violations]
+                finally:
+                    threadcheck.uninstall()
+                    contractcheck.uninstall()
                 records = [json.loads(ln) for ln in open(log)]
+                traces = [r for r in records if r["type"] == "profile_trace"]
+                check(all(os.path.getsize(r["path"]) > 0 for r in traces),
+                      f"{name}: a profile trace is missing")
             epochs = [r for r in records if r["type"] == "epoch"]
             runs[name] = {
                 "result": result, "wall_s": wall_s, "steps": trainer.global_step,
@@ -1077,6 +1246,9 @@ def phase_fused(torch):
                 # nothing extra); the later epochs are replays only.
                 "first_epoch_step_ms": _step_ms(r for r in epochs if r["epoch"] == 1),
                 "later_epoch_step_ms": _step_ms(r for r in epochs if r["epoch"] > 1),
+                "violations": violations + [r for r in records if r["type"].endswith(
+                    "_violation") or r["type"] == "recompile_warning"],
+                "traces": len(traces),
                 "state": {k: v.detach().cpu().clone()
                           for k, v in trainer.state.model.state_dict().items()},
             }
@@ -1087,7 +1259,8 @@ def phase_fused(torch):
 
     ref = runs["fused"]
     want = {"fused": ([True], [True], 6), "per_step": ([False], [False], 0),
-            "per_step_prefetch2": ([False], [False], 0), "fused_prefetch1": ([True], [True], 6)}
+            "per_step_prefetch2": ([False], [False], 0), "fused_prefetch1": ([True], [True], 6),
+            "fused_telemetry": ([True], [True], 6)}
     for name, run in runs.items():
         fused, graphed, captures = want[name]
         check(run["fused"] == fused and run["graphed"] == graphed and run["captures"] == captures,
@@ -1103,13 +1276,20 @@ def phase_fused(torch):
                     f"{_state_delta(torch, run['state'], ref['state'])[0]:.3g}")
     check(runs["fused_prefetch1"]["warm_hits"] == 5,
           f"{runs['fused_prefetch1']['warm_hits']} prefetch_warm hits (want 5)")
+    tel = runs["fused_telemetry"]
+    check(tel["violations"] == [] and tel["traces"] == 6,
+          f"the telemetry run: violations {tel['violations'][:3]}, {tel['traces']} traces")
     for name, run in runs.items():
         print(f"[fused] {name}: median step {run['step_ms']:.3f} ms (first epochs "
               f"{run['first_epoch_step_ms']:.3f}, later epochs {run['later_epoch_step_ms']:.3f}), "
               f"fit {run['wall_s']:.2f} s, {run['captures']} graph captures, {run['steps']} "
               f"steps, kernels ran {run['counts']['ran']} (wrapper calls "
               f"{run['counts']['calls']}), warm hits {run['warm_hits']} [{CARD}]")
-    print(f"[fused] all four runs bitwise equal under deterministic cuDNN (every state_dict "
+    print(f"[fused] telemetry on against off (graphed, deterministic): replayed step "
+          f"{tel['later_epoch_step_ms']:.3f} against {ref['later_epoch_step_ms']:.3f} ms, fit "
+          f"{tel['wall_s']:.2f} against {ref['wall_s']:.2f} s (its first epochs profiled) "
+          f"[{CARD}]")
+    print(f"[fused] all five runs bitwise equal under deterministic cuDNN (every state_dict "
           f"tensor, acc1s, gamma, the matrix); acc1s {[round(a, 3) for a in ref['result']['acc1s']]}")
     return {name: {k: v for k, v in run.items() if k not in ("state", "result")}
             for name, run in runs.items()}
@@ -1312,6 +1492,7 @@ def _job_protocol(torch, rank, out_dir, argv):
     trainer = build_trainer([
         *RACE_ARGV, "--batch_size", str(DP_STRIPE[0]), "--num_epochs", "1",
         "--mesh_data", str(DP_RANKS), "--log_file", os.path.join(out_dir, "dp.jsonl"),
+        "--check_lockstep", "--lockstep_dir", os.path.join(out_dir, "lockstep"),
     ])
     torch.cuda.synchronize()
     fl.reset_launches()
@@ -1325,6 +1506,9 @@ def _job_protocol(torch, rank, out_dir, argv):
         "wall_s": time.perf_counter() - t0, "acc1s": result["acc1s"],
         "device": str(trainer.device),
         "memory": hashlib.sha256(mx.tobytes() + my.tobytes()).hexdigest(),
+        "lockstep_checks": trainer.lockstep._seq,
+        "lockstep_violations": trainer.lockstep.violations,
+        "prefer_native": trainer.memory.prefer_native,
     }
 
 
@@ -1489,13 +1673,23 @@ def phase_data_parallel(torch):
     check(rnd["launches"] == 2,
           f"a sharded CE round launched {rnd['kernels']} (want the forward and the backward)")
 
-    # (b) Protocol.
+    # (b) Protocol, under the lockstep sentinel.
     nb_tasks = 6
     want = ["run"] + ["epoch", "task", "cil_metrics"] * nb_tasks + ["final"]
     for r, recs in enumerate(logs):
-        check([x["type"] for x in recs] == want,
+        check([x["type"] for x in recs if x["type"] in CORE_RECORDS] == want,
               f"rank {r} record sequence {[x['type'] for x in recs]}")
         check({x["process_index"] for x in recs} == {r}, f"rank {r} log tags")
+        units = [x["unit"] for x in recs if x["type"] == "lockstep_fingerprint"]
+        check(units.count("train_epoch_fused") == nb_tasks and "eval_step" in units
+              and "feature_step" in units
+              and not [x for x in recs if x["type"] == "lockstep_violation"],
+              f"rank {r}: lockstep fingerprints {len(units)}, or a violation")
+    check(proto[0]["lockstep_violations"] == proto[1]["lockstep_violations"] == []
+          and proto[0]["lockstep_checks"] == proto[1]["lockstep_checks"] > 0
+          and proto[0]["prefer_native"] and proto[1]["prefer_native"],
+          f"lockstep {[(p['lockstep_checks'], p['lockstep_violations']) for p in proto]}, "
+          f"native {[p['prefer_native'] for p in proto]}")
     recs = logs[0]
     check(recs[0]["mesh"] == {"data": DP_RANKS, "model": 1}
           and recs[0]["global_batch"] == DP_STRIPE[0] * DP_RANKS, f"run record {recs[0]}")
@@ -1516,7 +1710,8 @@ def phase_data_parallel(torch):
     print(f"[dp] protocol: {proto[0]['steps']} train steps a rank in {nb_tasks} tasks on "
           f"{proto[0]['device']} / {proto[1]['device']}, fit {proto[0]['wall_s']:.1f} s, "
           f"phase {wall_s:.1f} s; median step {step_ms:.3f} ms [{CARD}]; kernels ran "
-          f"{proto[0]['counts']['ran']} / {proto[1]['counts']['ran']}; memories equal")
+          f"{proto[0]['counts']['ran']} / {proto[1]['counts']['ran']}; memories equal; "
+          f"{proto[0]['lockstep_checks']} lockstep checks a rank, no violation")
     print(f"[dp] acc1 per task: {[round(a, 3) for a in proto[0]['acc1s']]}; gammas {gammas}")
     return {"backend": backend, "sharded": sharded, "launches": proto[0]["counts"]["ran"][0],
             "launches_per_rank": [out["counts"]["ran"] for out in proto]}
@@ -1675,26 +1870,34 @@ def phase_durability(torch):
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         legs = {}
+        chaos_tel = os.path.join(tmp, "chaos_tel")
         for name in ("twin", "chaos"):
             out, log = os.path.join(tmp, f"{name}.pt"), os.path.join(tmp, f"{name}.jsonl")
             sup_log = os.path.join(tmp, "supervisor.jsonl")
             cmd = [sys.executable, os.path.abspath(__file__), "durable", out, *DURABLE_ARGV,
                    "--ckpt_dir", os.path.join(tmp, f"{name}_ckpt"), "--log_file", log]
             if name == "chaos":
+                # With a telemetry dir: the injector's on_fatal dumps the
+                # flight recorder before the SIGKILL, and the supervisor
+                # harvests that dump into crash_report.json before the
+                # relaunch writes its own.
                 cmd = [sys.executable, os.path.join(here, "scripts", "supervise.py"),
                        "--backoff_base", "0.1", "--backoff_max", "0.5", "--max_failures", "2",
-                       "--log", sup_log, "--", *cmd, "--fault_spec", DURABLE_KILL]
+                       "--log", sup_log, "--telemetry_dir", chaos_tel, "--", *cmd,
+                       "--fault_spec", DURABLE_KILL, "--telemetry_dir", chaos_tel]
             rc, wall_s, tail = _run_leg(cmd, here, sup_log if name == "chaos" else None)
             check(rc == 0 and os.path.exists(out), f"durability leg {name} exited {rc}: {tail}")
             legs[name] = torch.load(out)
             legs[name]["wall_s"] = wall_s
             legs[name]["log"] = [json.loads(ln) for ln in open(log)]
         events = [json.loads(ln) for ln in open(sup_log)]
+        crash = json.load(open(os.path.join(chaos_tel, "crash_report.json")))
+        last_flight = json.load(open(os.path.join(chaos_tel, "flight_0.json")))
         report = _round_trip(torch, tmp)
 
     twin, chaos = legs["twin"], legs["chaos"]
-    check([e["event"] for e in events] == ["launch", "exit", "relaunch", "launch", "exit",
-                                           "done"]
+    check([e["event"] for e in events] == ["launch", "exit", "crash_report", "relaunch",
+                                           "launch", "exit", "done"]
           and events[1]["returncode"] == -9
           and [e["cmd"].count("--resume") for e in events if e["event"] == "launch"] == [0, 1],
           f"the supervisor's events: {[(e['event'], e.get('returncode')) for e in events]}")
@@ -1710,12 +1913,20 @@ def phase_durability(torch):
     check(chaos["step0"] + chaos["steps"] == twin["steps"],
           f"steps: {chaos['step0']} restored + {chaos['steps']} run != {twin['steps']}")
 
-    types = [r["type"] for r in twin["log"]]
-    cut = next(i for i, r in enumerate(twin["log"])
+    core = [r for r in twin["log"] if r["type"] in CORE_RECORDS]
+    types = [r["type"] for r in core]
+    cut = next(i for i, r in enumerate(core)
                if r["type"] == "epoch" and (r["task_id"], r["epoch"]) == (2, 1)) + 1
     want = types[:cut] + ["fault_injected", "run", "resume"] + types[cut:]
-    check([r["type"] for r in chaos["log"]] == want,
-          f"chaos record sequence {[r['type'] for r in chaos['log']]}")
+    got = [r["type"] for r in chaos["log"] if r["type"] in CORE_RECORDS]
+    check(got == want, f"chaos record sequence {got}")
+    # The killed child's flight recorder, dumped by the injector's on_fatal.
+    dumps = crash["flight_dumps"]
+    check(crash["returncode"] == -9 and len(dumps) == 1 and dumps[0]["reason"] == "fatal"
+          and any(e.get("type") == "fault_injected" for e in dumps[0]["events"])
+          and last_flight["reason"] == "close",
+          f"flight dumps: {[(d['reason'], d['last_open_span']) for d in dumps]}, the "
+          f"relaunch's {last_flight['reason']}")
 
     gammas = {n: [r["gamma"] for r in leg["log"] if r["type"] == "task"]
               for n, leg in legs.items()}
@@ -1738,6 +1949,9 @@ def phase_durability(torch):
     print(f"[durable] twin {twin['wall_s']:.1f} s wall (fit {twin['fit_s']:.1f} s, "
           f"{twin['steps']} steps); chaos {chaos['wall_s']:.1f} s wall under the supervisor "
           f"(resumed fit {chaos['fit_s']:.1f} s, {chaos['steps']} steps) [{CARD}]")
+    print(f"[durable] the killed child's flight_0.json: reason {dumps[0]['reason']}, last "
+          f"open span {dumps[0]['last_open_span']}, {len(dumps[0]['events'])} events, harvested "
+          f"into crash_report.json")
     print(f"[durable] resumed from {os.path.basename(chaos['resumed_from']['path'])} at task "
           f"{chaos['start'][0]}, epoch {chaos['start'][1] + 1}; kernels ran "
           f"{chaos['counts']['ran']} times after the resume (wrapper calls "
@@ -1778,7 +1992,9 @@ def race(log: str, argv) -> int:
     time, the median train step and the average incremental top-1.  With
     ``--init_state <state.pt>`` the model takes that state dict right after
     task 0's head grows (e.g. the JAX package's initial weights for a seed,
-    written by ``tests/test_torch_race_init.py save``)."""
+    written by ``tests/test_torch_race_init.py save``).  The summary also
+    counts task 0's epochs on the plateau (train CE >= ``PLATEAU_CE``) and
+    gives each alignment's γ distance from ``RACE_REFERENCE``."""
     import torch
 
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
@@ -1813,8 +2029,17 @@ def race(log: str, argv) -> int:
     wall_s = time.perf_counter() - t0
     records = [json.loads(ln) for ln in open(log)]
     epochs = [r for r in records if r["type"] == "epoch"]
+    gammas = [r["gamma"] for r in records if r["type"] == "task"]
+    ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), RACE_REFERENCE)
+    ref = ([r["gamma"] for r in map(json.loads, open(ref_path)) if r["type"] == "task"]
+           if os.path.exists(ref_path) else [])
     summary = {
         "log": log, "argv": argv, "init_state": init_state, "card": smi, "wall_s": wall_s,
+        # Task 0's epochs on the plateau of the uniform prediction (CE ln 50).
+        "task0_plateau_epochs": sum(1 for r in epochs
+                                    if r["task_id"] == 0 and r["ce"] >= PLATEAU_CE),
+        "gammas": gammas,
+        "gamma_deltas": [round(abs(a - b), 6) for a, b in zip(gammas[1:], ref[1:])],
         "graphed": sorted({r["graphed"] for r in epochs}), "captures": trainer.epoch_fn.captures,
         "run_to_final_s": records[-1]["ts"] - records[0]["ts"],
         "steps": sum(r["steps"] for r in epochs),
@@ -1845,6 +2070,7 @@ def main() -> int:
         timing = phase_timing(torch)
         augment = phase_augment(torch)
         launches = phase_main_path(torch)
+        herding = phase_herding(launches)
         precision = phase_precision(torch)
         fused = phase_fused(torch)
         dp = phase_data_parallel(torch)
@@ -1911,7 +2137,8 @@ def main() -> int:
                       "main_path_step_ms": launches["step_ms"], "card": smi}))
     print(json.dumps({"durability": durability, "card": smi}))
     print(json.dumps({"fused": fused, "main_path": {k: launches[k] for k in (
-        "step_ms", "replay_step_ms", "fit_s", "captures", "profiled")}, "card": smi}))
+        "step_ms", "replay_step_ms", "fit_s", "captures", "profiled", "telemetry")},
+        "herding": herding, "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

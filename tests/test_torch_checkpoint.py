@@ -253,8 +253,8 @@ def test_resumed_log_is_the_twins_from_the_resume_point(twin, chain):
         return [r for r in records if r["type"] in ("epoch", "task", "cil_metrics", "final")]
 
     types = [r["type"] for r in chain["log"]]
-    assert types == ["run", "resume", "epoch", "fault_injected", "run", "resume",
-                     "epoch", "task", "cil_metrics", "final"]
+    assert types == ["run", "resume", "compile_event", "epoch", "fault_injected", "run",
+                     "resume", "compile_event", "epoch", "task", "cil_metrics", "final"]
     resumes = [r for r in chain["log"] if r["type"] == "resume"]
     assert (resumes[0]["kind"], resumes[0]["start_task"], resumes[0]["start_epoch"]) == \
         ("task", 1, 0)

@@ -66,7 +66,7 @@ def test_herding_and_memory_are_identical(method):
     x = rng.randint(0, 256, (60, 4, 4, 3)).astype(np.uint8)
     y = np.repeat(np.arange(6), 10).astype(np.int64)
     jmem = jdata.RehearsalMemory(memory_size=24, herding_method=method, prefer_native=False)
-    tmem = tdata.RehearsalMemory(memory_size=24, herding_method=method)
+    tmem = tdata.RehearsalMemory(memory_size=24, herding_method=method, prefer_native=False)
     jmem.add(x[:30], y[:30], None, feats[:30])
     tmem.add(x[:30], y[:30], None, feats[:30])
     jmem.add(x, y, None, feats)  # re-ranks the old classes, shrinks the quota
@@ -74,7 +74,8 @@ def test_herding_and_memory_are_identical(method):
     for a, b in zip(jmem.get(), tmem.get()):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(
-        jdata.herd_barycenter(feats, 7, allow_native=False), tdata.herd_barycenter(feats, 7)
+        jdata.herd_barycenter(feats, 7, allow_native=False),
+        tdata.herd_barycenter(feats, 7, allow_native=False),
     )
 
 

@@ -94,8 +94,9 @@ def test_supervisor_relaunches_the_killed_cli_with_resume(supervised):
 def test_relaunch_resumes_at_the_killed_epoch_boundary(supervised):
     log = supervised["log"]
     assert [r["type"] for r in log] == [
-        "run", "epoch", "epoch", "task", "cil_metrics", "epoch", "fault_injected",
-        "run", "resume", "epoch", "task", "cil_metrics", "final"]
+        "run", "compile_event", "epoch", "epoch", "task", "cil_metrics", "compile_event",
+        "epoch", "fault_injected", "run", "resume", "compile_event", "epoch", "task",
+        "cil_metrics", "final"]
     resume = next(r for r in log if r["type"] == "resume")
     assert (resume["kind"], resume["start_task"], resume["start_epoch"]) == ("epoch", 1, 1)
     assert resume["path"].endswith("task_001_epoch_001.ckpt")

@@ -217,8 +217,8 @@ def test_cli_on_cpu_writes_the_record_sequence(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     records = [json.loads(ln) for ln in log.read_text().splitlines()]
     types = [r["type"] for r in records]
-    assert types == ["run", "epoch", "epoch", "task", "cil_metrics",
-                     "epoch", "epoch", "task", "cil_metrics", "final"]
+    assert types == ["run", "compile_event", "epoch", "epoch", "task", "cil_metrics",
+                     "compile_event", "epoch", "epoch", "task", "cil_metrics", "final"]
     assert records[0]["backbone"] == "resnet20"
     tasks = [r for r in records if r["type"] == "task"]
     assert tasks[0]["gamma"] is None and tasks[1]["gamma"] is not None
@@ -239,19 +239,33 @@ def test_cli_on_cpu_writes_the_record_sequence(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--ckpt_backend", "orbax"],
-    ["--check_threads"],
-    ["--heartbeat_path", "hb"],
-    ["--profile_dir", "prof"],
-    ["--recompile_budget"],
     ["--aa", "none", "--color_jitter", "0", "--mesh_model", "2"],
     ["--aa", "none", "--color_jitter", "0", "--fault_spec", "replica_die@task0"],
     ["--aa", "none", "--color_jitter", "0", "--fault_spec", "kill@task1,swap_ioerror@task1"],
-    ["--aa", "none", "--color_jitter", "0", "--check_contracts"],
-    ["--aa", "none", "--color_jitter", "0", "--telemetry_dir", "tel"],
     ["--aa", "none", "--color_jitter", "0", "--export_dir", "exp"],
-    ["--aa", "none", "--color_jitter", "0", "--check_lockstep"],
     ["--aa", "none", "--color_jitter", "0", "--serve_skew_check"],
 ])
 def test_flags_outside_the_slice_raise(flags):
     with pytest.raises(NotImplementedError, match="slice"):
         build_trainer(["--platform", "cpu", "--data_set", "synthetic10", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--check_threads"],
+    ["--heartbeat_path", "hb"],
+    ["--profile_dir", "prof"],
+    ["--recompile_budget"],
+    ["--check_contracts"],
+    ["--telemetry_dir", "tel"],
+    ["--check_lockstep"],
+    ["--check_lockstep", "--lockstep_dir", "ls"],
+])
+def test_telemetry_and_lockstep_flags_are_in_the_slice(flags):
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.config import (
+        check_supported,
+        config_from_args,
+        get_args_parser,
+    )
+
+    args = get_args_parser().parse_args(["--data_set", "synthetic10", *flags])
+    check_supported(config_from_args(args))
