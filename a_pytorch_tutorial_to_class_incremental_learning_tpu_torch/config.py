@@ -3,12 +3,12 @@
 Same field names, flag names and defaults as the JAX package's
 ``config.py``, so one argv drives either trainer.  The port runs the parser's
 augmentation (RandAugment or colour jitter, random erasing) under every
-precision preset, on the per-step loop, on one device or data parallel over
-N processes, with pickle checkpoints, resume, the training-side fault sites,
-the telemetry and its sentinels (threads, contracts, lockstep, recompile
-budget); every flag that selects something outside it is rejected by
-:func:`check_supported` (or, for ``--mesh_model``, ``parallel.data_axis``)
-with the name of the slice that will bring it, never silently ignored.
+precision preset, on one device or over a ``(data, model)`` mesh of
+processes, with pickle or sharded (``orbax``) checkpoints, resume, the
+training-side fault sites, the telemetry and its sentinels (threads,
+contracts, lockstep, recompile budget); every flag that selects something
+outside it (serving) is rejected by :func:`check_supported` with the name
+of the slice that will bring it, never silently ignored.
 """
 
 from __future__ import annotations
@@ -165,7 +165,6 @@ def _serves(fault_spec: Optional[str]) -> bool:
 
 # (field, predicate that is True when the value is outside this slice, slice)
 _LATER_SLICES = (
-    ("ckpt_backend", lambda v: v == "orbax", "model-axis"),
     ("fault_spec", _serves, "serving"),
     ("export_dir", lambda v: v is not None, "serving"),
     ("serve_skew_check", bool, "serving"),
@@ -230,8 +229,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default=d.compute_dtype,
                    choices=["float32", "bfloat16"])
     p.add_argument("--mesh_data", default=0, type=int,
-                   help="data-axis size: 0 or the number of processes "
-                   "(torchrun --nproc_per_node N ... --mesh_data N)")
+                   help="data-axis size: 0 (the processes // --mesh_model) or "
+                   "that number (torchrun --nproc_per_node D*M ... --mesh_data D "
+                   "--mesh_model M)")
     p.add_argument("--mesh_model", default=1, type=int)
     p.add_argument("--ckpt_dir", default=None, type=str)
     p.add_argument("--ckpt_backend", default=d.ckpt_backend,
@@ -300,7 +300,12 @@ def config_from_args(args: argparse.Namespace) -> CilConfig:
     aa = None if args.aa in (None, "none", "None", "") else args.aa
     mesh_shape = None
     if args.mesh_data or args.mesh_model != 1:
-        mesh_shape = (args.mesh_data or 1, args.mesh_model)
+        # --mesh_data 0 is every process left over by the model axis (JAX:
+        # len(jax.devices()) // model).
+        from .parallel.dist import get_world_size
+
+        data = args.mesh_data or get_world_size() // max(args.mesh_model, 1)
+        mesh_shape = (data, args.mesh_model)
     precision = args.precision or ""
     compute_dtype = args.compute_dtype
     if precision:

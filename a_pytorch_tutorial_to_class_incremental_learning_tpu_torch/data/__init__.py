@@ -1,7 +1,12 @@
 """Data layer: datasets, class-incremental scenario, rehearsal memory, host
 batching and on-device augmentation."""
 
-from .datasets import build_raw_dataset, load_cifar100, load_synthetic  # noqa: F401
+from .datasets import (  # noqa: F401
+    build_raw_dataset,
+    load_cifar100,
+    load_mnist_idx,
+    load_synthetic,
+)
 from .scenario import ClassIncremental, TaskSet  # noqa: F401
 from .memory import (  # noqa: F401
     RehearsalMemory,

@@ -1,14 +1,18 @@
 """Raw datasets as in-memory ``(images uint8 NHWC, labels int64)`` arrays.
 
 numpy only, and bit-identical to the JAX package's ``data/datasets.py`` for
-the loaders ported here: the seeded synthetic family and the CIFAR-100 pickle
-distribution.  MNIST and image-folder datasets arrive with a later slice.
+the loaders ported here: the seeded synthetic family (``synthetic_mnist``
+included), the CIFAR-100 pickle distribution and the MNIST IDX files.  The
+image-folder loader (``imagenet1000``) decodes through PIL, which the port
+does without, and is not ported.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
+import struct
 import tarfile
 from typing import Tuple
 
@@ -49,6 +53,43 @@ def _decode_cifar(raw: dict) -> Arrays:
     x = x.transpose(0, 2, 3, 1)  # stored NCHW -> NHWC
     y = np.asarray(raw[b"fine_labels"], np.int64)
     return np.ascontiguousarray(x), y
+
+
+def load_mnist_idx(data_path: str, train: bool) -> Arrays:
+    """Parse the MNIST IDX files (``train-images-idx3-ubyte`` and the rest,
+    plain or ``.gz``) under ``data_path`` or ``data_path/MNIST/raw`` into
+    ``(x uint8 [N,28,28,1], y int64)``.  The format: a big-endian int32 magic
+    (0x803 images, 0x801 labels), the dimensions, then the raw bytes.
+    Nothing is downloaded."""
+    prefix = "train" if train else "t10k"
+
+    def read(kind: str, magic_want: int) -> np.ndarray:
+        names = [f"{prefix}-{kind}", f"{prefix}-{kind}.gz"]
+        roots = [data_path, os.path.join(data_path, "MNIST", "raw")]
+        for root in roots:
+            for name in names:
+                path = os.path.join(root, name)
+                if not os.path.isfile(path):
+                    continue
+                opener = gzip.open if path.endswith(".gz") else open
+                with opener(path, "rb") as f:
+                    magic, n = struct.unpack(">ii", f.read(8))
+                    if magic != magic_want:
+                        raise ValueError(f"{path}: bad IDX magic {magic:#x}")
+                    if magic_want == 0x803:
+                        h, w = struct.unpack(">ii", f.read(8))
+                        return np.frombuffer(f.read(), np.uint8).reshape(n, h, w, 1)
+                    return np.frombuffer(f.read(), np.uint8).astype(np.int64)
+        raise FileNotFoundError(
+            f"MNIST IDX files not found under {data_path!r} (nothing is "
+            "downloaded); use --data_set synthetic_mnist for runs without data"
+        )
+
+    x = read("images-idx3-ubyte", 0x803)
+    y = read("labels-idx1-ubyte", 0x801)
+    if len(x) != len(y):
+        raise ValueError(f"MNIST images/labels length mismatch: {len(x)}/{len(y)}")
+    return x, y
 
 
 def load_synthetic(
@@ -93,10 +134,15 @@ def build_raw_dataset(
     name = data_set.lower()
     if name == "cifar":
         x, y = load_cifar100(data_path, train)
-    elif name in ("mnist", "synthetic_mnist", "imagenet1000"):
+    elif name == "mnist":
+        x, y = load_mnist_idx(data_path, train)
+    elif name == "synthetic_mnist":
+        # The 1-channel dataset of the mnist backbone family, at input_size.
+        x, y = load_synthetic(nb_classes=10, input_size=input_size, channels=1, train=train)
+    elif name == "imagenet1000":
         raise NotImplementedError(
-            f"data_set {data_set!r} is not ported yet: the MNIST and "
-            "image-folder loaders arrive with a later slice of the PyTorch port"
+            "data_set 'imagenet1000' is not ported: its image-folder loader "
+            "decodes through PIL, which the PyTorch port does without"
         )
     elif name == "synthetic":
         x, y = load_synthetic(train=train)

@@ -88,16 +88,28 @@ wins over ``--compute_dtype``) and handed to the model, the teacher (a copy
 of it) and the train step; TF32 stays off, so the f32 parts of every preset
 are full f32.
 
-Data parallel over N processes (``torchrun ... --mesh_data N``): the global
-batch is ``batch_size × N`` and rank ``r`` trains on, and evaluates, the
-stripe ``[r·b, (r+1)·b)`` of each global batch; the eval totals are
-all-reduced before their one host fetch.  Everything else is replicated
-with no communication: the model is made from the same seed and broadcast
-from rank 0 once, head growth and augmentation draw from generators seeded
-alike on every rank, every rank holds the whole task dataset on the fused
-path, and every rank herds the same memory from the full, unsharded
-feature pass.  Rank 0 writes the JSONL log and prints; rank ``r > 0``
-writes ``<name>_p<r>.jsonl``.
+Over a ``(data, model)`` mesh of ``d·m`` processes (``torchrun ...
+--mesh_data d --mesh_model m``; ``parallel/mesh.py``): the global batch is
+``batch_size × d`` and data index ``i`` trains on, and evaluates, the
+stripe ``[i·b, (i+1)·b)`` of each global batch; the eval totals are
+all-reduced over the data axis before their one host fetch.  The ``m``
+ranks of a data index see the same stripe and augment it with the same
+draws; each holds its rows of the head (``width_multiple=m`` pads the head
+so that it shards), and the forward gathers the full head, so the logits,
+the loss and ``γ`` are the unsharded ones on every rank.  Everything else
+is replicated with no communication: the model is made from the same seed
+and its backbone broadcast from rank 0 once, head growth and augmentation
+draw from generators seeded alike on every rank, every rank holds the
+whole task dataset on the fused path, and every rank herds the same memory
+from the full, unsharded feature pass.  Files and agreements go by the
+global rank: rank 0 writes the JSONL log and prints; rank ``r > 0`` writes
+``<name>_p<r>.jsonl``.
+
+MNIST and the 1-channel backbones (``--data_set mnist|synthetic_mnist``,
+``--backbone resnet20mnist|resnet32mnist``): the channel count comes from
+the backbone's name, and a channel or size mismatch with the data, or
+RandAugment on one channel, raises at construction (JAX
+``engine/loop.py:243-277``).
 """
 
 from __future__ import annotations
@@ -123,8 +135,9 @@ from ..data import (
 from ..data.augment import AugmentConfig
 from ..data.prefetch import DevicePrefetcher, to_device
 from ..models import align, create_model, group_span, grow
+from ..models.resnet import backbone_channels
 from ..ops.precision import policy_from_config
-from ..parallel import barrier, broadcast_module, data_axis
+from ..parallel import barrier, broadcast_module, make_mesh
 from ..telemetry import (
     AccuracyMatrix,
     CompileWatch,
@@ -170,7 +183,11 @@ class CilTrainer:
         check_supported(config)
         self.config = config
         self.device = resolve_device(device)
-        self.axis = data_axis(config.mesh_shape)
+        self.mesh = make_mesh(config.mesh_shape)
+        # The data axis: the stripe, the augmentation draws, the loss shares
+        # and the eval totals.  The global rank (self.mesh.rank) names the
+        # files and takes part in the agreements.
+        self.axis = self.mesh.data
         if config.bn_group_size > 0:
             group_span(config.bn_group_size, config.batch_size, self.axis.size)
         use_full_f32()
@@ -190,8 +207,8 @@ class CilTrainer:
             log_path = os.path.join(config.telemetry_dir, "run.jsonl")
         # A resumed run appends, so the records before the crash stay.
         self.jsonl = JsonlLogger(log_path, append=config.resume,
-                                 process_index=self.axis.rank,
-                                 process_count=self.axis.size)
+                                 process_index=self.mesh.rank,
+                                 process_count=self.mesh.size)
         if contracts is not None:
             self.jsonl = contracts.wrap_sink(self.jsonl)
         self.telemetry = Telemetry(
@@ -200,8 +217,8 @@ class CilTrainer:
             heartbeat_interval_s=config.heartbeat_interval_s,
             sink=self.jsonl,
             flight_events=config.flight_events,
-            process_index=self.axis.rank,
-            process_count=self.axis.size,
+            process_index=self.mesh.rank,
+            process_count=self.mesh.size,
             metrics=config.metrics,
             metrics_interval_s=config.metrics_interval_s,
             metrics_source="train",
@@ -227,13 +244,27 @@ class CilTrainer:
             self.scenario_val, _ = build_scenario(config, train=False)
         self._compile_watch = CompileWatch.install()
 
+        channels = backbone_channels(config.backbone)
         data_x = self.scenario_train._x
+        if data_x.shape[-1] != channels:
+            raise ValueError(
+                f"backbone {config.backbone!r} expects {channels}-channel input but "
+                f"data_set {config.data_set!r} has {data_x.shape[-1]} channels"
+            )
         if data_x.shape[1] != config.input_size:
             raise ValueError(
                 f"data_set {config.data_set!r} images are {data_x.shape[1]}px "
-                f"but --input_size is {config.input_size}"
+                f"but --input_size is {config.input_size}: pass --input_size "
+                f"{data_x.shape[1]}"
             )
         self.aug_cfg = AugmentConfig.from_config(config)
+        if channels == 1 and self.aug_cfg.rand_augment:
+            # RandAugment's colour and histogram ops are defined on RGB; crop,
+            # jitter and erasing take one channel.
+            raise ValueError(
+                f"backbone {config.backbone!r} is 1-channel; RandAugment requires "
+                "RGB: pass --aa none"
+            )
         self.policy = policy_from_config(config)
         # batch_size is per process, as the reference's per-GPU batch.
         self.global_batch_size = config.batch_size * self.axis.size
@@ -242,9 +273,11 @@ class CilTrainer:
             config.backbone, self.nb_classes,
             seed=derive_seed(config.seed, _INIT_STREAM),
             bn_group_size=config.bn_group_size, axis=self.axis, policy=self.policy,
+            width_multiple=self.mesh.model.size, model_axis=self.mesh.model,
         ).to(self.device)
-        if self.axis.sharded:
-            broadcast_module(model, self.axis.group)
+        if self.mesh.size > 1:
+            # The backbone only: each rank keeps its own head shard.
+            broadcast_module(model.backbone, dist.group.WORLD)
         self.state = TrainState(
             model=model,
             momentum=sgd_init(model.parameters()),
@@ -268,7 +301,8 @@ class CilTrainer:
             axis=self.axis,
         )
         self.train_step = make_train_step(self.aug_cfg, self.policy, **step_hp)
-        self.epoch_fn = make_epoch_fn(self.aug_cfg, self.policy, device=self.device, **step_hp)
+        self.epoch_fn = make_epoch_fn(self.aug_cfg, self.policy, device=self.device,
+                                      processes=self.mesh.size, **step_hp)
         # lr and λ as 0-d device tensors, as JAX traces them: a captured
         # step reads their values at each replay.
         self._lr = torch.zeros((), device=self.device)
@@ -312,8 +346,8 @@ class CilTrainer:
                          if self.device.type == "cuda" else "cpu"),
             torch_version=torch.__version__,
             use_pallas_loss=config.use_pallas_loss,
-            mesh={"data": self.axis.size, "model": 1},
-            processes=self.axis.size,
+            mesh=self.mesh.shape,
+            processes=self.mesh.size,
         )
         self.acc1s: List[float] = []
         self.matrix = AccuracyMatrix()
@@ -348,7 +382,7 @@ class CilTrainer:
         ledger = cfg.fault_state
         if ledger is None and cfg.ckpt_dir:
             ledger = os.path.join(cfg.ckpt_dir, "fault_ledger.jsonl")
-        if not cfg.resume and self.axis.rank == 0:
+        if not cfg.resume and self.mesh.rank == 0:
             archived = rotate_ledger(ledger)
             if archived:
                 self.jsonl.log("fault_ledger_rotated", path=ledger, archived=archived)
@@ -374,7 +408,7 @@ class CilTrainer:
             lockstep_dir = os.path.join(cfg.ckpt_dir, "lockstep")
         flight = self.telemetry.flight
         sentinel = LockstepSentinel(
-            lockstep_dir, process_index=self.axis.rank, process_count=self.axis.size,
+            lockstep_dir, process_index=self.mesh.rank, process_count=self.mesh.size,
             sink=self.jsonl, on_fatal=flight.fatal_dump if flight is not None else None,
             deadline_s=cfg.lockstep_deadline_s)
         barrier()
@@ -382,14 +416,14 @@ class CilTrainer:
 
     def _native_everywhere(self) -> bool:
         """Load (building if needed) the native herding library, at startup;
-        True only if every rank has it (an all-reduce MIN), so replicated
-        memories never differ between ranks with and without it."""
+        True only if every rank of the world has it (an all-reduce MIN), so
+        replicated memories never differ between ranks with and without it."""
         from ..utils.native import native_available
 
         have = native_available()
-        if self.axis.sharded:
+        if self.mesh.size > 1:
             flag = torch.tensor([int(have)], dtype=torch.int32, device=self.device)
-            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.axis.group)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
             have = bool(flag.item())
         return have
 

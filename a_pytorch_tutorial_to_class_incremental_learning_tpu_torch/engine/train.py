@@ -20,12 +20,19 @@ Data parallel (``group``, the process group of the data axis): each rank
 holds a stripe of the global batch and its loss terms are its *shares* of
 the global-batch loss (local mean / N); the masked CE with
 ``use_pallas_loss`` goes through ``sharded_fused_masked_cross_entropy``.
-The parameter gradients are then summed over the ranks in one all-reduce
-of a flat buffer, the JAX convention for replicated parameters (the sum of
-the per-shard contributions), and every rank takes the same SGD step.  The
-model is not wrapped in ``DistributedDataParallel``: its reducer hooks do
-not fire under ``torch.autograd.grad``, the head grows in place every task,
-and it averages where this convention sums.
+The parameter gradients are then summed over the data axis in one
+all-reduce of a flat buffer, the JAX convention for replicated parameters
+(the sum of the per-shard contributions), and every rank takes the same SGD
+step.  The model is not wrapped in ``DistributedDataParallel``: its reducer
+hooks do not fire under ``torch.autograd.grad``, the head grows in place
+every task, and it averages where this convention sums.
+
+Model axis: the ranks of one data index step the same stripe; the model
+gathers its head shards into the full head for the forward
+(``parallel/mesh.py`` ``gather_rows``), so the loss, the kernels' full-width
+rows and the feature gradient are the same on each, and each rank's head
+gradient is its rows of the unsharded one.  The data-axis all-reduce then
+covers the backbone and the head shard alike.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -85,11 +92,23 @@ def sgd_update(
     lr: Scalar,
     momentum: float,
     weight_decay: float,
+    frozen: Optional[Sequence[bool]] = None,
 ) -> None:
     """torch.optim.SGD (dampening 0, no Nesterov), in place, in the JAX
     package's order: ``buf = m·buf + g + wd·p;  p = p - lr·buf``.  ``lr``
     may be a 0-d tensor on the parameters' device (a captured step reads it
-    at each replay) or a float."""
+    at each replay) or a float.  ``frozen`` (one flag a parameter,
+    ``models.freeze_mask``'s values) is JAX's mask: a frozen parameter gets
+    no update and its momentum buffer stays zero."""
+    if frozen is not None:
+        for buf, f in zip(momentum_buf, frozen):
+            if f:
+                buf.zero_()
+        live = [i for i, f in enumerate(frozen) if not f]
+        params, grads, momentum_buf = ([xs[i] for i in live]
+                                       for xs in (params, grads, momentum_buf))
+        if not live:
+            return
     torch._foreach_mul_(momentum_buf, momentum)
     torch._foreach_add_(momentum_buf, grads)
     torch._foreach_add_(momentum_buf, params, alpha=weight_decay)
@@ -293,6 +312,7 @@ def make_epoch_fn(
     use_pallas_loss: bool = False,
     axis: Optional[DataAxis] = None,
     device: Optional[torch.device] = None,
+    processes: int = 1,
 ) -> EpochFn:
     """The fused epoch: counterpart of the JAX package's ``make_epoch_fn``
     (its ``lax.scan`` over the steps of an epoch, one dispatch an epoch).
@@ -313,14 +333,15 @@ def make_epoch_fn(
     resets the function whenever it passes other ones (the loop does at
     the start of each task).  ``generator`` is registered with the graph,
     so reseeding it between epochs reseeds the replays.
-    On the CPU, and at more than one rank (gloo's collectives cannot be
-    captured), the same steps run eagerly.  The choice is made here, from
-    the device and the rank count."""
+    On the CPU, and at more than one rank (``processes``: the run's, data
+    and model axes together; gloo's collectives cannot be captured), the
+    same steps run eagerly.  The choice is made here, from the device and
+    the process count."""
     axis = axis or DataAxis()
     device = device or torch.device("cpu")
     step = make_train_step(aug_cfg, policy, label_smoothing, kd_temperature, momentum,
                            weight_decay, use_pallas_loss, axis)
-    return EpochFn(step, axis, graphed=device.type == "cuda" and axis.size == 1)
+    return EpochFn(step, axis, graphed=device.type == "cuda" and processes == 1)
 
 
 def make_eval_step(aug_cfg: AugmentConfig):

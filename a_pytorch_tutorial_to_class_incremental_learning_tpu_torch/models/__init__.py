@@ -9,4 +9,4 @@ from .classifier import (  # noqa: F401
     torch_linear_init,
     weight_align,
 )
-from .cil_model import CilModel, align, create_model, grow  # noqa: F401
+from .cil_model import CilModel, align, create_model, freeze_mask, grow, round_up  # noqa: F401

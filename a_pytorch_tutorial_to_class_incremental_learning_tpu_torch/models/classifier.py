@@ -6,14 +6,23 @@ are the live classes and the rest read ``NEG_INF``.  ``num_active`` may be a
 device tensor, so masking needs no host sync.  The torch layout stores the
 head as ``weight [width, 64]`` (rows are classes), where flax keeps
 ``fc_kernel [64, width]``.  Growth and alignment write the head in place.
+
+On a model axis (``parallel/mesh.py``) ``fc`` is this rank's shard, the
+rows ``[k·W/m, (k+1)·W/m)`` of the full head, and ``axis`` its
+``ModelAxis``: the forward gathers the full head (:func:`gather_rows`),
+growth draws every new row on every rank and keeps its own, and alignment
+takes its norms over the gathered head, so each gives every rank its rows
+of the unsharded result.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import ModelAxis, gather_full, gather_rows
 
 # Finite stand-in for -inf: exp(NEG_INF - m) is exactly 0 in f32, so masked
 # columns get zero probability and zero gradient without NaNs.
@@ -35,15 +44,33 @@ def torch_linear_init(
     return weight, bias
 
 
+def _sharded(axis: Optional[ModelAxis]) -> bool:
+    return axis is not None and axis.sharded
+
+
+def _rows(fc: torch.nn.Linear, axis: Optional[ModelAxis]) -> Tuple[int, int]:
+    """``(first row, full width)`` of the head that ``fc`` holds."""
+    rows = fc.weight.shape[0]
+    if not _sharded(axis):
+        return 0, rows
+    return axis.rank * rows, rows * axis.size
+
+
 @torch.no_grad()
-def grow_head(fc: torch.nn.Linear, generator: torch.Generator, known: int, nb_new: int) -> None:
-    """Initialize the rows ``[known, known + nb_new)`` for a new task."""
-    width, feat_dim = fc.weight.shape
+def grow_head(fc: torch.nn.Linear, generator: torch.Generator, known: int, nb_new: int,
+              axis: Optional[ModelAxis] = None) -> None:
+    """Initialize the rows ``[known, known + nb_new)`` for a new task.  A
+    shard draws all ``nb_new`` rows, as the full head does, and keeps its
+    own: the generator's stream stays in step with an unsharded run."""
+    lo, width = _rows(fc, axis)
+    feat_dim = fc.weight.shape[1]
     if known + nb_new > width:
         raise ValueError(f"head overflow: known={known} + new={nb_new} > width={width}")
     w, b = torch_linear_init(generator, feat_dim, nb_new)
-    fc.weight[known : known + nb_new] = w.to(fc.weight.device)
-    fc.bias[known : known + nb_new] = b.to(fc.bias.device)
+    start, stop = max(known, lo), min(known + nb_new, lo + fc.weight.shape[0])
+    if start < stop:
+        fc.weight[start - lo:stop - lo] = w[start - known:stop - known].to(fc.weight.device)
+        fc.bias[start - lo:stop - lo] = b[start - known:stop - known].to(fc.bias.device)
 
 
 def masked_logits(
@@ -52,15 +79,19 @@ def masked_logits(
     bias: torch.Tensor,
     num_active: Union[int, torch.Tensor],
     head_dtype: torch.dtype = torch.float32,
+    axis: Optional[ModelAxis] = None,
 ) -> torch.Tensor:
     """``[B, 64] -> [B, width]`` f32 logits with columns ``>= num_active``
-    masked.
+    masked.  ``weight`` and ``bias`` may be shards of the ``axis`` group:
+    the full head is gathered first, so every rank gets the full-width
+    rows, the same on each.
 
     A ``head_dtype`` narrower than f32 rounds both operands to it (the f32
     master weight at the call) and multiplies them in f32: the product of
     two bf16 values is exact in f32, so this is JAX's bf16 matmul with
     ``preferred_element_type=float32``, where a bf16 ``F.linear`` would
     round the logits to bf16."""
+    weight, bias = gather_rows(axis, weight), gather_rows(axis, bias)
     if torch.finfo(head_dtype).bits < 32:
         features = features.to(head_dtype).float()
         weight = weight.to(head_dtype).float()
@@ -70,14 +101,21 @@ def masked_logits(
 
 
 @torch.no_grad()
-def weight_align(fc: torch.nn.Linear, known: int, nb_new: int) -> torch.Tensor:
+def weight_align(fc: torch.nn.Linear, known: int, nb_new: int,
+                 axis: Optional[ModelAxis] = None) -> torch.Tensor:
     """WA: scale the newest head's weight rows (not its bias) by
-    ``gamma = mean(old-class norms) / mean(new-class norms)``; returns gamma."""
+    ``gamma = mean(old-class norms) / mean(new-class norms)``; returns gamma.
+    The norms are taken over the whole head (a shard gathers it first), so
+    gamma is the unsharded one on every rank."""
     if known <= 0 or nb_new <= 0:
         raise ValueError(
             f"weight_align needs old and new classes (known={known}, nb_new={nb_new})"
         )
-    norms = torch.linalg.norm(fc.weight[: known + nb_new], dim=1)
+    lo, _ = _rows(fc, axis)
+    weight = gather_full(axis, fc.weight) if _sharded(axis) else fc.weight
+    norms = torch.linalg.norm(weight[: known + nb_new], dim=1)
     gamma = norms[:known].mean() / norms[known:].mean()
-    fc.weight[known : known + nb_new] *= gamma
+    start, stop = max(known, lo), min(known + nb_new, lo + fc.weight.shape[0])
+    if start < stop:
+        fc.weight[start - lo:stop - lo] *= gamma
     return gamma

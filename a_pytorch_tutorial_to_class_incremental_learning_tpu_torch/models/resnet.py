@@ -150,7 +150,20 @@ class CifarResNet(nn.Module):
         return self.pool(x)
 
 
-_DEPTHS = {"resnet20": 20, "resnet32": 32, "resnet44": 44, "resnet56": 56, "resnet110": 110}
+# Flag string -> (depth, input channels): the JAX package's factory table
+# (JAX ``models/resnet.py:209-226``).  ``resnet10mnist`` is there too, but
+# depth 10 is not 6n+2, so both packages refuse to build it.
+_BACKBONES = {
+    "resnet20": (20, 3), "resnet32": (32, 3), "resnet44": (44, 3), "resnet56": (56, 3),
+    "resnet110": (110, 3),
+    "resnet10mnist": (10, 1), "resnet20mnist": (20, 1), "resnet32mnist": (32, 1),
+}
+
+
+def backbone_channels(name: str) -> int:
+    """The input channels of backbone ``name`` (JAX's trainer: 1 for the
+    ``*mnist`` family, else 3)."""
+    return 1 if "mnist" in name else 3
 
 
 def get_backbone(name: str, generator: Optional[torch.Generator] = None,
@@ -158,13 +171,8 @@ def get_backbone(name: str, generator: Optional[torch.Generator] = None,
                  policy: Policy = PRESETS["f32"]) -> CifarResNet:
     """Flag string -> backbone; ``bn_group_size``/``axis`` pick its BN
     (``models/norm.py``), ``policy`` its dtypes."""
-    if name.endswith("mnist"):
-        raise NotImplementedError(
-            f"backbone {name!r} is not ported yet: the 1-channel backbones arrive "
-            "with the MNIST data slice of the PyTorch port"
-        )
     try:
-        depth = _DEPTHS[name]
+        depth, channels = _BACKBONES[name]
     except KeyError:
         raise NotImplementedError(f"Unknown backbone {name}") from None
-    return CifarResNet(depth, 3, generator, bn_group_size, axis, policy)
+    return CifarResNet(depth, channels, generator, bn_group_size, axis, policy)

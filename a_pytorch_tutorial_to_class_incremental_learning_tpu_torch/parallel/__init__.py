@@ -1,4 +1,4 @@
-"""Data parallelism: the process group and the data axis of the mesh."""
+"""The process group and the ``(data, model)`` mesh of a run."""
 
 from .dist import (  # noqa: F401
     barrier,
@@ -8,4 +8,17 @@ from .dist import (  # noqa: F401
     is_main_process,
     setup_for_distributed,
 )
-from .mesh import DataAxis, all_reduce_sum, broadcast_module, data_axis  # noqa: F401
+from .mesh import (  # noqa: F401
+    DataAxis,
+    Mesh,
+    ModelAxis,
+    all_reduce_sum,
+    broadcast_module,
+    data_axis,
+    gather_full,
+    gather_rows,
+    make_mesh,
+    param_sharding,
+    shard_params,
+    shard_rows,
+)

@@ -36,12 +36,28 @@ go on unless they agree.
 
 Fault injection (``--fault_spec``): each save fires site ``ckpt.save``;
 ``save_ioerror`` raises before any byte is written, ``truncate_ckpt`` and
-``corrupt_ckpt`` damage the finished payload without refreshing its
-checksum.
+``corrupt_ckpt`` damage the finished payload (for ``orbax``, its ``.meta``
+sidecar, as JAX does) without refreshing its checksum.
 
-Only the ``pickle`` backend is ported: ``orbax`` (per-rank shards, whose
-torch counterpart is ``torch.distributed.checkpoint``) differs from it only
-once the state is sharded, which arrives with the model-axis slice.
+Two formats (``--ckpt_backend``), as in JAX:
+
+* ``pickle`` (default): the payload above, written by rank 0.  On a model
+  axis the head is gathered over rank 0's model group first, so a payload
+  holds the full-width head whatever the mesh (JAX's ``_to_host`` makes it
+  so), and a restore gives each rank its rows.
+* ``orbax``: the device trees (``params`` and ``batch_stats``, plus
+  ``momentum`` and the teacher's ``teacher_params``/``teacher_batch_stats``
+  at epoch granularity) through ``torch.distributed.checkpoint``, every
+  rank writing its own shards: a head shard is a ``DTensor`` sharded on the
+  model dimension and replicated over data, so each shard is written once.
+  The host half (memory, history, counters) is the ``.meta`` pickle beside
+  the directory, with its ``.sha256``, written first; then, after a
+  barrier, the directory is written under a temporary name and renamed by
+  rank 0 after a second barrier, so a crash never leaves a directory that
+  loads without its ``.meta``.  The restore reads into fresh tensors shaped
+  like the live state (its template) and copies them into the live
+  tensors.  The tensors stay on the card: ``torch.distributed.checkpoint``
+  stages them through the host itself, under ``gloo`` as under ``nccl``.
 """
 
 from __future__ import annotations
@@ -51,6 +67,7 @@ import hashlib
 import os
 import pickle
 import re
+import shutil
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -58,28 +75,51 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.dist import barrier, is_main_process
+from ..parallel.mesh import HEAD_PARAMS, gather_full, shard_rows
 
 _TASK_RE = re.compile(r"task_(\d+)\.(ckpt|orbax)")
 _EPOCH_RE = re.compile(r"task_(\d+)_epoch_(\d+)\.(ckpt|orbax)")
 
 
-def _task_path(ckpt_dir: str, task_id: int) -> str:
-    return os.path.join(ckpt_dir, f"task_{task_id:03d}.ckpt")
+def _ext(backend: str) -> str:
+    return "orbax" if backend == "orbax" else "ckpt"
 
 
-def _epoch_path(ckpt_dir: str, task_id: int, epoch: int) -> str:
-    return os.path.join(ckpt_dir, f"task_{task_id:03d}_epoch_{epoch:03d}.ckpt")
+def _task_path(ckpt_dir: str, task_id: int, backend: str = "pickle") -> str:
+    return os.path.join(ckpt_dir, f"task_{task_id:03d}.{_ext(backend)}")
 
 
-def _to_host(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
-    return {name: t.detach().cpu().numpy() for name, t in named}
+def _epoch_path(ckpt_dir: str, task_id: int, epoch: int, backend: str = "pickle") -> str:
+    return os.path.join(ckpt_dir, f"task_{task_id:03d}_epoch_{epoch:03d}.{_ext(backend)}")
+
+
+def _head_axis(model, name: str):
+    """The model axis that shards tensor ``name`` of ``model``, or None."""
+    return model.head_axis if name in HEAD_PARAMS else None
+
+
+def _to_host(model, named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+    """Host copies, a head shard gathered to the full head (a collective of
+    the model group: every rank calls this on a sharded model)."""
+    out = {}
+    for name, t in named:
+        axis = _head_axis(model, name)
+        full = gather_full(axis, t) if axis is not None else t
+        out[name] = full.detach().cpu().numpy()
+    return out
 
 
 def _model_state(model) -> dict:
     return {
-        "params": _to_host(model.named_parameters()),
-        "batch_stats": _to_host(model.named_buffers()),
+        "params": _to_host(model, model.named_parameters()),
+        "batch_stats": _to_host(model, model.named_buffers()),
     }
+
+
+def _writes_host_state(trainer) -> bool:
+    """Whether this rank makes a pickle payload's host copies: rank 0, and
+    on a model axis every rank, which all take part in the head's gathers."""
+    return is_main_process() or trainer.state.model.head_axis is not None
 
 
 def _acc_matrix(trainer) -> List[Optional[List[float]]]:
@@ -169,7 +209,10 @@ def checkpoint_candidates(ckpt_dir: str) -> List[Tuple[int, Optional[int], str]]
         path = os.path.join(ckpt_dir, name)
         if name.endswith(".tmp"):
             try:
-                os.remove(path)
+                if os.path.isdir(path):  # an orbax directory a crash cut short
+                    shutil.rmtree(path)
+                else:
+                    os.remove(path)
                 print(f"| removed stale checkpoint temp file {path}")
             except OSError:
                 pass  # another rank's scan removed it first
@@ -224,18 +267,19 @@ def _apply_payload_faults(actions, path: str) -> None:
     without touching its checksum sidecar."""
     if not actions or not is_main_process():
         return
-    size = os.path.getsize(path)
+    target = _payload_file(path)
+    size = os.path.getsize(target)
     if "truncate_ckpt" in actions:
-        with open(path, "r+b") as f:
+        with open(target, "r+b") as f:
             f.truncate(max(size // 2, 1))
-        print(f"| fault: truncated {path} to {max(size // 2, 1)} bytes")
+        print(f"| fault: truncated {target} to {max(size // 2, 1)} bytes")
     if "corrupt_ckpt" in actions:
-        with open(path, "r+b") as f:
+        with open(target, "r+b") as f:
             f.seek(size // 2)
             byte = f.read(1)
             f.seek(size // 2)
             f.write(bytes([(byte[0] if byte else 0) ^ 0xFF]))
-        print(f"| fault: flipped a byte at offset {size // 2} of {path}")
+        print(f"| fault: flipped a byte at offset {size // 2} of {target}")
 
 
 def _write_pickle_atomic(path: str, payload: dict) -> None:
@@ -246,18 +290,105 @@ def _write_pickle_atomic(path: str, payload: dict) -> None:
     os.replace(tmp, path)
 
 
+def _dcp_tensor(trainer, model, name: str, t: torch.Tensor):
+    """``t`` as ``torch.distributed.checkpoint`` takes it: a head shard as a
+    ``DTensor`` over the ``(data, model)`` mesh, sharded on the model
+    dimension and replicated over data; anything else as it is."""
+    if _head_axis(model, name) is None:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = trainer.mesh.device_mesh(t.device.type)
+    return DTensor.from_local(t, mesh, [Replicate(), Shard(0)], run_check=False)
+
+
+def _device_trees(trainer, epoch_granular: bool, teacher=None,
+                  fresh: bool = False) -> Dict[str, dict]:
+    """JAX's orbax trees of the live state: ``params`` and ``batch_stats``,
+    plus ``momentum`` and, with a ``teacher`` model, ``teacher_params`` and
+    ``teacher_batch_stats`` at epoch granularity.  ``fresh`` gives new
+    tensors of the same shapes (a restore's template) instead of the live
+    ones."""
+    model = trainer.state.model
+    names = [n for n, _ in model.named_parameters()]
+
+    def tree(named):
+        return {n: _dcp_tensor(trainer, model, n,
+                               torch.empty_like(t) if fresh else t.detach())
+                for n, t in named}
+
+    trees = {"params": tree(model.named_parameters()),
+             "batch_stats": tree(model.named_buffers())}
+    if epoch_granular:
+        trees["momentum"] = tree(zip(names, trainer.state.momentum))
+        if teacher is not None:
+            trees["teacher_params"] = tree(teacher.named_parameters())
+            trees["teacher_batch_stats"] = tree(teacher.named_buffers())
+    return trees
+
+
+def _load_sharded(trainer, path: str, payload: dict, epoch_granular: bool) -> dict:
+    """The ``orbax`` backend's restore: every rank reads its shards into a
+    template of fresh tensors shaped like the live state, as JAX restores
+    onto the live state's shardings; returns ``payload`` with the pickle
+    backend's trees (``params``, ``batch_stats`` and, at epoch granularity,
+    ``momentum`` and ``teacher``) holding those tensors, for the caller to
+    copy into the live ones."""
+    import torch.distributed.checkpoint as dcp
+
+    has_teacher = epoch_granular and payload["has_teacher"]
+    trees = _device_trees(trainer, epoch_granular,
+                          teacher=trainer.state.model if has_teacher else None, fresh=True)
+    dcp.load(trees, checkpoint_id=path, no_dist=not dist.is_initialized())
+    local = {k: {n: t.to_local() if hasattr(t, "to_local") else t for n, t in tree.items()}
+             for k, tree in trees.items()}
+    out = dict(payload, params=local["params"], batch_stats=local["batch_stats"])
+    if epoch_granular:
+        out["momentum"] = local["momentum"]
+        out["teacher"] = ({"params": local["teacher_params"],
+                           "batch_stats": local["teacher_batch_stats"]}
+                          if has_teacher else None)
+    return out
+
+
+def _save_sharded(trainer, path: str, meta: dict, trees: Dict[str, dict]) -> None:
+    """The ``orbax`` backend's save: the ``.meta`` pickle (rank 0) first,
+    then every rank's shards into ``path.tmp``, renamed to ``path`` by rank
+    0 once every rank has written."""
+    import torch.distributed.checkpoint as dcp
+
+    if is_main_process():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        _write_pickle_atomic(path + ".meta", meta)
+    barrier()
+    tmp = path + ".tmp"
+    dcp.save(trees, checkpoint_id=tmp, no_dist=not dist.is_initialized())
+    barrier()
+    if is_main_process():
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+
+
 def save_task_checkpoint(trainer, task_id: int) -> str:
     """Persist the post-task state (``CilTrainer.fit`` with ``ckpt_dir``)
     and drop the task's epoch files."""
     ckpt_dir = trainer.config.ckpt_dir
-    path = _task_path(ckpt_dir, task_id)
+    backend = trainer.config.ckpt_backend
+    path = _task_path(ckpt_dir, task_id, backend)
     actions = _fire_save_faults(trainer, task_id)
+    if backend == "orbax":
+        _save_sharded(trainer, path, _metadata(trainer, task_id),
+                      _device_trees(trainer, epoch_granular=False))
+    elif _writes_host_state(trainer):
+        state = _model_state(trainer.state.model)
+        if is_main_process():
+            os.makedirs(ckpt_dir, exist_ok=True)
+            payload = _metadata(trainer, task_id)
+            payload.update(state)
+            _write_pickle_atomic(path, payload)
+    _apply_payload_faults(actions, path)
     if is_main_process():
-        os.makedirs(ckpt_dir, exist_ok=True)
-        payload = _metadata(trainer, task_id)
-        payload.update(_model_state(trainer.state.model))
-        _write_pickle_atomic(path, payload)
-        _apply_payload_faults(actions, path)
         _drop_epoch_checkpoints(ckpt_dir, task_id)
     barrier()
     return path
@@ -288,37 +419,51 @@ def save_epoch_checkpoint(trainer, task_id: int, epoch: int, nb_new: int) -> str
     payload's fields plus the momentum, the teacher, the pre-task
     ``known``/``nb_new`` split and the step count."""
     ckpt_dir = trainer.config.ckpt_dir
-    path = _epoch_path(ckpt_dir, task_id, epoch)
+    backend = trainer.config.ckpt_backend
+    path = _epoch_path(ckpt_dir, task_id, epoch, backend)
     actions = _fire_save_faults(trainer, task_id, epoch=epoch)
-    if is_main_process():
-        os.makedirs(ckpt_dir, exist_ok=True)
+    if backend == "orbax":
+        meta = _epoch_metadata(trainer, task_id, epoch, nb_new)
+        meta["has_teacher"] = trainer.teacher is not None
+        teacher = trainer.teacher.model if trainer.teacher is not None else None
+        _save_sharded(trainer, path, meta,
+                      _device_trees(trainer, epoch_granular=True, teacher=teacher))
+    elif _writes_host_state(trainer):
         model = trainer.state.model
         names = [n for n, _ in model.named_parameters()]
-        payload = _epoch_metadata(trainer, task_id, epoch, nb_new)
-        payload.update(
+        state = dict(
             _model_state(model),
-            momentum=_to_host(zip(names, trainer.state.momentum)),
+            momentum=_to_host(model, zip(names, trainer.state.momentum)),
             teacher=(_model_state(trainer.teacher.model)
                      if trainer.teacher is not None else None),
         )
-        _write_pickle_atomic(path, payload)
-        _apply_payload_faults(actions, path)
+        if is_main_process():
+            os.makedirs(ckpt_dir, exist_ok=True)
+            payload = _epoch_metadata(trainer, task_id, epoch, nb_new)
+            payload.update(state)
+            _write_pickle_atomic(path, payload)
+    _apply_payload_faults(actions, path)
     barrier()
     return path
 
 
 def _drop_epoch_checkpoints(ckpt_dir: str, task_id: int) -> None:
-    """The task-boundary checkpoint supersedes its task's epoch files."""
+    """The task-boundary checkpoint supersedes its task's epoch files: a
+    pickle and its ``.sha256``, or an ``orbax`` directory, its ``.meta``
+    and the ``.meta``'s ``.sha256``."""
     if not os.path.isdir(ckpt_dir):
         return
     for name in os.listdir(ckpt_dir):
         m = _EPOCH_RE.fullmatch(name)
-        if m and m.group(3) == "ckpt" and int(m.group(1)) == task_id:
-            for victim in (name, name + ".sha256"):
+        if m and int(m.group(1)) == task_id:
+            target = os.path.join(ckpt_dir, name)
+            if os.path.isdir(target):
+                shutil.rmtree(target, ignore_errors=True)
+            for victim in (name, name + ".sha256", name + ".meta", name + ".meta.sha256"):
                 try:
                     os.remove(os.path.join(ckpt_dir, victim))
                 except OSError:
-                    pass  # the sidecar may legitimately not exist
+                    pass  # a sidecar may legitimately not exist
 
 
 # --------------------------------------------------------------------- #
@@ -342,10 +487,15 @@ def _trainer_tensors(trainer) -> Dict[str, torch.Tensor]:
 
 
 def _host_arrays(payload: dict) -> List[np.ndarray]:
+    """The restored state's host buffers: the unpickled arrays, or the
+    ``orbax`` reader's tensors that live on the host (one on the card
+    cannot alias a trainer tensor on the host)."""
     trees = [payload.get(k) for k in ("params", "batch_stats", "momentum")]
     if payload.get("teacher") is not None:
         trees += [payload["teacher"]["params"], payload["teacher"]["batch_stats"]]
-    return [a for tree in trees if tree for a in tree.values()]
+    arrays = [a for tree in trees if tree for a in tree.values()]
+    return [a.numpy() if isinstance(a, torch.Tensor) else a for a in arrays
+            if not isinstance(a, torch.Tensor) or a.device.type == "cpu"]
 
 
 def assert_unaliased(arrays: List[np.ndarray], tensors: Dict[str, torch.Tensor],
@@ -391,16 +541,23 @@ def poison_host_arrays(arrays: List[np.ndarray]) -> int:
 
 
 @torch.no_grad()
-def _copy_into(named: Iterable[Tuple[str, torch.Tensor]], arrays: Dict[str, np.ndarray],
+def _copy_into(model, named: Iterable[Tuple[str, torch.Tensor]], arrays: Dict[str, object],
                what: str) -> None:
-    """``Tensor.copy_`` every array into the live tensor of the same name;
-    names, shapes and dtypes must match exactly."""
+    """``Tensor.copy_`` every array (numpy, or a reader's tensor) into the
+    live tensor of ``model`` of the same name; names, dtypes and shapes must
+    match exactly, but for a head shard, which takes its rows of a
+    full-width array."""
     named = dict(named)
     if set(named) != set(arrays):
         diff = sorted(set(named) ^ set(arrays))
         raise ValueError(f"checkpoint {what} names differ from the model's: {diff[:5]}")
     for name, t in named.items():
-        src = torch.from_numpy(np.asarray(arrays[name]))
+        src = arrays[name]
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.asarray(src))
+        axis = _head_axis(model, name)
+        if axis is not None and src.shape[0] == t.shape[0] * axis.size:
+            src = shard_rows(axis, src)
         if src.shape != t.shape or src.dtype != t.dtype:
             raise ValueError(
                 f"checkpoint {what} {name!r} is {src.dtype}{tuple(src.shape)}, "
@@ -410,8 +567,8 @@ def _copy_into(named: Iterable[Tuple[str, torch.Tensor]], arrays: Dict[str, np.n
 
 
 def _load_model(model, state: dict) -> None:
-    _copy_into(model.named_parameters(), state["params"], "params")
-    _copy_into(model.named_buffers(), state["batch_stats"], "batch_stats")
+    _copy_into(model, model.named_parameters(), state["params"], "params")
+    _copy_into(model, model.named_buffers(), state["batch_stats"], "batch_stats")
 
 
 def _new_teacher(trainer, known: int, state: Optional[dict] = None):
@@ -443,12 +600,13 @@ def _resume_code(task_id: int, epoch: Optional[int]) -> int:
 
 
 def _agree_on_resume_point(trainer, found: int) -> None:
-    axis = trainer.axis
-    if not axis.sharded:
+    """Every rank of the world must have found the same resume point."""
+    world = trainer.mesh.size
+    if world == 1:
         return
     mine = torch.tensor([found], dtype=torch.int64, device=trainer.device)
-    seen = [torch.zeros_like(mine) for _ in range(axis.size)]
-    dist.all_gather(seen, mine, group=axis.group)
+    seen = [torch.zeros_like(mine) for _ in range(world)]
+    dist.all_gather(seen, mine)
     values = [int(s.item()) for s in seen]
     if len(set(values)) != 1:
         raise RuntimeError(
@@ -505,10 +663,7 @@ def load_task_checkpoint(trainer, path: Optional[str] = None) -> bool:
             f"{trainer.config.seed}; refusing silent mix of experiments"
         )
     if path.endswith(".orbax"):
-        raise NotImplementedError(
-            f"{path} is an orbax checkpoint: the orbax backend is not ported yet; "
-            "it arrives with the model-axis slice of the PyTorch port"
-        )
+        payload = _load_sharded(trainer, path, payload, epoch_granular=epoch is not None)
     if epoch is not None:
         return _restore_epoch(trainer, path, payload)
     _load_model(trainer.state.model, payload)
@@ -545,7 +700,7 @@ def _restore_epoch(trainer, path: str, payload: dict) -> bool:
     model = trainer.state.model
     _load_model(model, payload)
     names = [n for n, _ in model.named_parameters()]
-    _copy_into(zip(names, trainer.state.momentum), payload["momentum"], "momentum")
+    _copy_into(model, zip(names, trainer.state.momentum), payload["momentum"], "momentum")
     trainer.state.num_active = trainer._count(known + nb_new)
     trainer.state.known = trainer._count(known)
     trainer.teacher = (_new_teacher(trainer, known, payload["teacher"])

@@ -5,8 +5,11 @@ The port's submodules carry the flax names, so the mapping is per leaf:
 - conv ``kernel`` HWIO -> ``weight`` OIHW;
 - BN ``scale``/``bias`` -> ``weight``/``bias``, and ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var``;
-- ``fc_kernel [64, W]`` -> ``fc.weight [W, 64]``; ``fc_bias`` -> ``fc.bias``.
+- ``fc_kernel [64, W]`` -> ``fc.weight [W, 64]``; ``fc_bias`` -> ``fc.bias``;
+  on a model axis, this rank's rows of them (``parallel/mesh.py``
+  ``shard_params``).
 
+A 1-channel backbone's first kernel ``[3, 3, 1, 16]`` maps like any other.
 Inputs are nested mappings of numpy arrays (``jax.device_get`` of the
 variables); nothing here imports JAX.
 """
@@ -18,16 +21,20 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import ModelAxis, shard_params
+
 
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
 
 
 def from_jax_variables(
-    params: Mapping, batch_stats: Optional[Mapping] = None
+    params: Mapping, batch_stats: Optional[Mapping] = None,
+    model_axis: Optional[ModelAxis] = None,
 ) -> Dict[str, torch.Tensor]:
     """flax ``params`` (+ ``batch_stats``) of a ``CilModel`` or a bare
-    ``CifarResNet`` -> a ``state_dict`` for the port's matching module."""
+    ``CifarResNet`` -> a ``state_dict`` for the port's matching module (on
+    ``model_axis``, the module that holds this rank's head shard)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(p: Mapping, s: Mapping, prefix: str) -> None:
@@ -53,4 +60,6 @@ def from_jax_variables(
                 walk(v, s.get(name, {}), f"{key}.")
 
     walk(params, batch_stats or {}, "")
+    if model_axis is not None:
+        out = {k: v.clone() for k, v in shard_params(model_axis, out).items()}
     return out

@@ -21,8 +21,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    each kernel instance).
 2. Each kernel against its plain PyTorch version on the card: the CUDA C++
    fused masked-CE forward and backward over the test grid, the train
-   step's shape (B=128, W=100, 50 active) and a wide head (B=64, W=5000,
-   4321 active) that streams its rows, with smoothing 0 / 0.1 and f32 /
+   step's shape (B=128, W=100, 50 active), a wide head (B=64, W=5000,
+   4321 active) that streams its rows, and the widths the model axis and
+   MNIST bring at their task boundaries' active counts (W=10: 5, 10; W=12:
+   5, 10; W=100: 100; W=102: 50, 60, 100), with smoothing 0 / 0.1 and f32 /
    bf16 logits.  f32 must agree to rtol 1e-5 / atol 1e-6 (expf/logf and the
    sum order differ from PyTorch's), bf16 outputs to rtol 1e-2 (one bf16
    ulp), masked-column gradients must be exactly 0, the forward's in-kernel
@@ -34,7 +36,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    the ``autograd.Function``) and its kernel count from ``torch.profiler``
    (2 for the CUDA design: a hard check), an empty kernel launched through
    the same C path (the floor), the plain versions, the PyTorch calls that
-   compute the same functions, and the card's bound.
+   compute the same functions, and the card's bound; then each CUDA kernel
+   at the new widths' shapes (``WIDTH_SHAPES``) with its plain version, the
+   library call and the bound.
    Then augmentation on the card: every RandAugment op (15) at magnitudes
    {0, 4.5, 9, 10}, sign ±1, bilinear and bicubic, on a seeded uint8 batch
    of 128 32x32 images, against the same port function on the CPU: within
@@ -117,7 +121,27 @@ Phases, in order; any failure exits non-zero before the result lines:
    to the train steps, the same memory on both ranks, native herding on
    both, and every lockstep fingerprint (one a fused epoch, one a val and a
    herding batch) equal across the ranks: no violation.
-5. Durability: the main path's recipe (``synthetic_hard128``, resnet32,
+5. Model axis: the main path's recipe at 1 epoch a task (6 tasks) at mesh
+   ``(1, 2)`` (``--mesh_data 1 --mesh_model 2``): two ranks started as in
+   phase 4 (gloo with both ranks on card 0 where there is one card), each
+   holding 50 of the 100 head rows, with ``--ckpt_backend orbax``, against
+   one rank of the same seed, both under deterministic cuDNN: each step's
+   loss rtol 1e-4, the concatenated head shards and the backbone rtol 1e-3 /
+   atol 1e-4, γ within 1e-5, acc1 within 1e-4 (their deltas and whether all
+   are 0 printed), the kernels counting one run a step on each rank, the
+   ``run`` record's mesh ``{"data": 1, "model": 2}``; an ``orbax`` task and
+   epoch checkpoint saved at ``(1, 2)`` and restored into new trainers
+   there bitwise (one ``.distcp`` file a rank), and the pickle payload
+   saved at ``(1, 2)`` restored at ``(1, 1)`` to the full state.  The step
+   ms (two gloo ranks sharing one card: nothing of NCCL), the payload
+   bytes and the save and restore ms are printed.
+   Then MNIST, under deterministic cuDNN: ``synthetic_mnist`` on
+   resnet20mnist (28 px, 1 channel, ``--aa none``, 2 tasks of 5 classes, 6
+   epochs, batch 32) on the fused, graphed epoch and on the per-step loop,
+   and ``--data_set mnist`` on IDX files this phase writes from the same
+   images: the three bitwise equal, task 0 learned (acc1 above 50);
+   resnet32mnist for one task; each run's kernels one run a step (W=10).
+6. Durability: the main path's recipe (``synthetic_hard128``, resnet32,
    100-wide head, batch 128, B50-inc10, 6 tasks, memory 256, RandAugment,
    the CUDA kernels, the fused and graphed epoch) at 2 epochs a task with
    ``--epoch_ckpt_every 1``, in three legs.  (a) Twin: one uninterrupted CLI child.  (b) Chaos: the same
@@ -139,11 +163,14 @@ Phases, in order; any failure exits non-zero before the result lines:
    process: an epoch checkpoint (task 1, epoch 1: momentum, teacher, memory)
    and a task checkpoint are saved and restored into a new trainer, and
    every state tensor, the memory and the counters must come back bitwise.
+   (d) The chaos leg again on ``--ckpt_backend orbax``: it must resume from
+   ``task_002_epoch_001.orbax`` and end bitwise equal to (a).
    Each leg's wall time, the payload bytes and the save and restore times
    are printed beside the card.
-6. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
+7. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
    line, a ``{"durability": ...}`` line, a ``{"fused": ..., "main_path":
-   ..., "herding": ...}`` line, the card's name and power limit, a
+   ..., "herding": ...}`` line, a ``{"model_axis": ..., "mnist": ...}``
+   line, the card's name and power limit, a
    ``{"kernels": [...]}`` line, then the card line ``{"ok": true,
    "device": {...}}`` last.
 
@@ -177,6 +204,11 @@ F32_FLOP_PER_S = 67e12
 MAIN_SHAPE = (128, 100, 50)  # the train step's (B, W, active) on task 0
 GRID = [(32, 100, 60), (64, 128, 128), (16, 7, 5), (13, 100, 60), (320, 100, 60),
         (384, 100, 60), MAIN_SHAPE, (64, 5000, 4321)]
+# The widths the model axis and MNIST bring, at their task boundaries' active
+# counts: W=10 (MNIST, 5 + 5 classes; a 40-byte row), W=12 (10 classes at
+# --mesh_model 4), W=102 (100 classes at --mesh_model 3), and W=100 full.
+NEW_WIDTHS = [(128, 10, 5), (128, 10, 10), (128, 12, 5), (128, 12, 10), (128, 100, 100),
+              (128, 102, 50), (128, 102, 60), (128, 102, 100)]
 PORT = "a_pytorch_tutorial_to_class_incremental_learning_tpu_torch"
 CUDA_SOURCE = f"{PORT}/csrc/fused_ce.cu"
 TRITON_SOURCE = f"{PORT}/ops/triton_fused_loss.py"
@@ -197,6 +229,16 @@ RACE_ARGV = ["--data_set", "synthetic_hard128", "--backbone", "resnet32",
 DURABLE_ARGV = [*RACE_ARGV, "--batch_size", "128", "--num_epochs", "2",
                 "--epoch_ckpt_every", "1"]
 DURABLE_KILL = "kill@task2.epoch1"
+# The model-axis phase: the main path's recipe at one epoch a task.
+MA_ARGV = [*RACE_ARGV, "--batch_size", "128", "--num_epochs", "1"]
+# The MNIST phase: synthetic_mnist on resnet20mnist, 2 tasks (5 + 5 classes),
+# crop without flip (RandAugment takes RGB), the CUDA kernels at W=10; batch
+# 32 and 6 epochs, so that a task of 320 images takes 60 steps and learns.
+MNIST_ARGV = ["--data_set", "synthetic_mnist", "--backbone", "resnet20mnist",
+              "--input_size", "28", "--aa", "none", "--num_bases", "5", "--increment", "5",
+              "--batch_size", "32", "--num_epochs", "6", "--memory_size", "50",
+              "--use_pallas_loss"]
+MNIST_LEARNED = 50.0       # task 0's acc1 after its epochs (5 classes: chance is 20)
 # The race gate's reference log (PERF.md §2), and the train CE at or above
 # which a task-0 epoch counts as on the plateau of the uniform prediction
 # (ln 50 = 3.912).
@@ -370,7 +412,7 @@ def phase_kernels(torch):
 
     t_fwd, t_bwd, _ = _triton_design(torch)
     err = {"fwd": 0.0, "bwd": 0.0, "triton_fwd": 0.0, "triton_bwd": 0.0}
-    for b, w, active in GRID:
+    for b, w, active in GRID + NEW_WIDTHS:
         for dtype in (torch.float32, torch.bfloat16):
             for s in (0.0, 0.1):
                 x, y, na = _inputs(torch, b, w, active, dtype)
@@ -649,6 +691,53 @@ def phase_timing(torch):
               f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
               f"library_host_us={t['library_host_us']:.2f} "
               f"bound_ms={t['bound_ms']:.7f} ({t['bound_by']}) [{CARD}]")
+    return out
+
+
+# The new widths' shapes on their paths, timed: MNIST's step (B=32, W=10,
+# 10 active in task 1), 10 classes at --mesh_model 4 (W=12) and 100 classes
+# at --mesh_model 3 (W=102), each at the train step's batch where it is not
+# MNIST's.
+WIDTH_SHAPES = [(32, 10, 10), (128, 12, 10), (128, 102, 100)]
+
+
+def phase_widths(torch):
+    """Each CUDA kernel at the new widths' shapes: ``ms`` (device-side
+    spacing), the plain version's, the library call's and the byte bound,
+    as ``phase_timing`` takes them at the main shape."""
+    import torch.nn.functional as F
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+
+    out = {}
+    one = torch.ones((), device="cuda")
+    g = torch.tensor(1.0, device="cuda")
+    for b, w, active in WIDTH_SHAPES:
+        scale = 1.0 / b
+        x, y, na = _inputs(torch, b, w, active, torch.float32, seed=3)
+        xg = x.clone().requires_grad_(True)
+        lse = fl.fused_ce_fwd(x, y, na, 0.0, scale)[1]
+        library_round = _device_ms(torch, lambda: torch.autograd.grad(
+            F.cross_entropy(xg[:, :active], y), xg, grad_outputs=one))
+        rows = {
+            "fwd": {"ms": _device_ms(torch, lambda: fl.fused_ce_fwd(x, y, na, 0.0, scale)),
+                    "plain_ms": _device_ms(torch, lambda: fl.fused_ce_fwd_plain(
+                        x, y, na, 0.0, scale)),
+                    "library_ms": _device_ms(torch, lambda: F.cross_entropy(x[:, :active], y)),
+                    "bytes": _fwd_bytes(b, w), "ops": 6 * b * w},
+            "bwd": {"ms": _device_ms(torch, lambda: fl.fused_ce_bwd(x, y, na, lse, g, 0.0,
+                                                                     scale)),
+                    "plain_ms": _device_ms(torch, lambda: fl.fused_ce_bwd_plain(
+                        x, y, na, lse, g, 0.0, scale)),
+                    "library_ms": library_round,
+                    "bytes": 2 * b * w * 4 + b * 8 + 4 + b * 4 + 4, "ops": 7 * b * w},
+        }
+        for op, t in rows.items():
+            _bound(t)
+            print(f"[widths] {op} B={b} W={w} active={active}: ms={t['ms']:.5f} "
+                  f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
+                  f"bound_ms={t['bound_ms']:.7f} ({t['bound_by']}) [{CARD}]")
+        out[f"B{b}_W{w}_a{active}"] = rows
     return out
 
 
@@ -1521,7 +1610,103 @@ def _job_cli(torch, rank, out_dir, argv):
     return {"wall_s": time.perf_counter() - t0, "acc1s": result["acc1s"]}
 
 
-RANK_JOBS = {"step": _job_step, "protocol": _job_protocol, "cli": _job_cli}
+def _step_losses(trainer) -> list:
+    """Wrap the trainer's fused epoch so that every train step's loss lands
+    in the returned list (host values, as the epoch fetches them)."""
+    losses = []
+    run = trainer._run_epoch_fused
+
+    def recorded(*args, **kwargs):
+        rows = run(*args, **kwargs)
+        losses.extend(float(r["loss"]) for r in rows)
+        return rows
+
+    trainer._run_epoch_fused = recorded
+    return losses
+
+
+def _timed(torch, fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _tree_bytes(path: str) -> int:
+    """A checkpoint's bytes: the file, or a directory's files and its
+    ``.meta`` sidecar."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return (sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+            + os.path.getsize(path + ".meta"))
+
+
+def _job_model_axis(torch, rank, out_dir, argv):
+    """The model-axis run at mesh (1, 2) under deterministic cuDNN, with the
+    ``orbax`` backend's task checkpoints; then the sharded round trips (an
+    ``orbax`` task and epoch checkpoint restored into new trainers at (1,
+    2)) and a pickle payload for the 1-rank restore.  The kernel counts are
+    zeroed just before ``fit`` and read just after."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import (
+        checkpoint as ck,
+    )
+
+    _deterministic_cudnn(torch, True)
+    ckpt = os.path.join(out_dir, "ma_orbax")
+    argv = [*MA_ARGV, "--mesh_data", "1", "--mesh_model", str(DP_RANKS),
+            "--ckpt_dir", ckpt, "--ckpt_backend", "orbax"]
+    trainer = build_trainer([*argv, "--log_file", os.path.join(out_dir, "ma.jsonl")])
+    losses = _step_losses(trainer)
+    torch.cuda.synchronize()
+    fl.reset_launches()
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    out = {"counts": _counts(fl), "steps": trainer.global_step, "losses": losses,
+           "captures": trainer.epoch_fn.captures, "wall_s": time.perf_counter() - t0,
+           "acc1s": result["acc1s"], "fc_rows": trainer.state.model.fc.weight.shape[0],
+           "state": {k: v.detach().cpu().clone()
+                     for k, v in trainer.state.model.state_dict().items()}}
+
+    def state(t, teacher=True):
+        sd = lambda m: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}  # noqa: E731
+        return {"model": sd(t.state.model), "momentum": [m.cpu() for m in t.state.momentum],
+                "teacher": sd(t.teacher.model) if teacher else None}
+
+    last = len(result["acc1s"]) - 1
+    again = [*argv, "--log_file", os.path.join(out_dir, "again.jsonl")]
+    live = state(trainer)
+    trips = {}
+    for kind in ("task", "epoch"):
+        if kind == "task":
+            path, save_ms = _timed(torch, ck.save_task_checkpoint, trainer, last)
+        else:
+            path, save_ms = _timed(torch, ck.save_epoch_checkpoint, trainer, last, 1, 10)
+        fresh = build_trainer(again)
+        _, restore_ms = _timed(torch, ck.load_task_checkpoint, fresh, path)
+        got = state(fresh)
+        want = dict(live, momentum=[torch.zeros_like(m) for m in live["momentum"]],
+                    teacher=live["model"]) if kind == "task" else live
+        equal = (_state_equal(torch, got["model"], want["model"])
+                 and _state_equal(torch, got["teacher"], want["teacher"])
+                 and all(torch.equal(a, b) for a, b in zip(got["momentum"], want["momentum"])))
+        trips[kind] = {"equal": equal, "bytes": _tree_bytes(path), "save_ms": save_ms,
+                       "restore_ms": restore_ms, "files": sorted(os.listdir(path))}
+        del fresh
+    out["orbax"] = trips
+    trainer.config = trainer.config.replace(ckpt_backend="pickle",
+                                            ckpt_dir=os.path.join(out_dir, "ma_pickle"))
+    path, save_ms = _timed(torch, ck.save_task_checkpoint, trainer, last)
+    out["pickle"] = {"path": path, "bytes": _tree_bytes(path), "save_ms": save_ms}
+    _deterministic_cudnn(torch, False)
+    return out
+
+
+RANK_JOBS = {"step": _job_step, "protocol": _job_protocol, "cli": _job_cli,
+             "model_axis": _job_model_axis}
 
 
 def _rank_main(rank, backend, port, jobs, out_dir, argv):
@@ -1561,6 +1746,215 @@ def launch_ranks(torch, jobs, out_dir, argv=()) -> str:
     mp.start_processes(_rank_main, args=(backend, _free_port(), list(jobs), out_dir, list(argv)),
                        nprocs=DP_RANKS, join=True, start_method="spawn")
     return backend
+
+
+def phase_model_axis(torch):
+    """The model axis at mesh (1, 2): two ranks (gloo on card 0 with one
+    card) each holding 50 of the 100 head rows, against one rank of the same
+    seed, both under deterministic cuDNN; then the sharded checkpoints."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import (
+        checkpoint as ck,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _deterministic_cudnn(torch, True)
+        try:
+            one = build_trainer([*MA_ARGV, "--log_file", os.path.join(tmp, "one.jsonl")])
+            one_losses = _step_losses(one)
+            torch.cuda.synchronize()
+            fl.reset_launches()
+            one_result = one.fit()
+            torch.cuda.synchronize()
+            one_counts = _counts(fl)
+            one_state = {k: v.detach().cpu().clone()
+                         for k, v in one.state.model.state_dict().items()}
+        finally:
+            _deterministic_cudnn(torch, False)
+        _check_counts("the 1-rank model-axis twin", one_counts, one.global_step,
+                      one.epoch_fn.captures)
+        one_log = [json.loads(ln) for ln in open(os.path.join(tmp, "one.jsonl"))]
+        del one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            backend = launch_ranks(torch, ["model_axis"], tmp)
+        except Exception as exc:  # noqa: BLE001 - a rank's error, re-raised by spawn
+            raise SmokeFailure(f"a model-axis rank failed: {exc}") from exc
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"model_axis{r}.pt")) for r in range(DP_RANKS)]
+        logs = [[json.loads(ln) for ln in open(os.path.join(tmp, name))]
+                for name in ("ma.jsonl", "ma_p1.jsonl")]
+        # The pickle payload written at (1, 2), restored at (1, 1).
+        restored = build_trainer([*MA_ARGV, "--log_file", os.path.join(tmp, "restore.jsonl")])
+        payload_path = ranks[0]["pickle"]["path"]
+        _, restore_ms = _timed(torch, ck.load_task_checkpoint, restored, payload_path)
+        ranks[0]["pickle"]["restore_ms"] = restore_ms
+        restored_state = {k: v.detach().cpu() for k, v in
+                          restored.state.model.state_dict().items()}
+        del restored
+
+    run = logs[0][0]
+    check(run["mesh"] == {"data": 1, "model": DP_RANKS} and run["processes"] == DP_RANKS
+          and run["global_batch"] == 128, f"the model-axis run record {run}")
+    for r, out in enumerate(ranks):
+        check(out["fc_rows"] == 100 // DP_RANKS, f"rank {r} holds {out['fc_rows']} head rows")
+        _check_counts(f"model-axis rank {r}", out["counts"], out["steps"], out["captures"])
+        check(out["captures"] == 0 and all(x["graphed"] is False and x["fused"] is True
+                                           for x in logs[r] if x["type"] == "epoch"),
+              f"model-axis rank {r}: the fused epoch did not run eagerly")
+        check(len(out["losses"]) == len(one_losses) and all(
+            math.isclose(a, b, rel_tol=1e-4) for a, b in zip(out["losses"], one_losses)),
+              f"model-axis rank {r}: step losses off the 1-rank run's by "
+              f"{max(abs(a / b - 1) for a, b in zip(out['losses'], one_losses)):.3g}")
+    # The two shards are the head; the backbone is replicated.
+    full = dict(ranks[0]["state"])
+    for name in ("fc.weight", "fc.bias"):
+        full[name] = torch.cat([out["state"][name] for out in ranks])
+    for name in full:
+        if not name.startswith("fc."):
+            check(torch.equal(ranks[0]["state"][name], ranks[1]["state"][name]),
+                  f"the ranks' {name} differ")
+    state_abs, state_over = _state_delta(torch, full, one_state)
+    check(state_over <= 0, f"the (1, 2) state is off the 1-rank state by {state_abs:.3g}")
+    gammas = [[x["gamma"] for x in log if x["type"] == "task"] for log in logs + [one_log]]
+    gamma_delta = max(abs(a - b) for a, b in zip(gammas[0][1:], gammas[2][1:]))
+    acc_delta = max(abs(a - b) for a, b in zip(ranks[0]["acc1s"], one_result["acc1s"]))
+    check(gammas[0] == gammas[1] and gamma_delta <= 1e-5 and acc_delta <= 1e-4,
+          f"gamma {gammas[0]} vs {gammas[2]}, acc1s {ranks[0]['acc1s']} vs "
+          f"{one_result['acc1s']}")
+    loss_rel = max(abs(a / b - 1) for a, b in zip(ranks[0]["losses"], one_losses))
+    bitwise = (loss_rel == 0 and state_abs == 0 and gamma_delta == 0 and acc_delta == 0)
+    for r, out in enumerate(ranks):
+        for kind, trip in out["orbax"].items():
+            check(trip["equal"], f"rank {r}: the orbax {kind} round trip at (1, 2) differs")
+    check(ranks[0]["orbax"]["task"]["files"] == [".metadata"] + [
+        f"__{r}_0.distcp" for r in range(DP_RANKS)],
+          f"the orbax directory holds {ranks[0]['orbax']['task']['files']}")
+    check(_state_equal(torch, restored_state, full),
+          "the pickle payload saved at (1, 2) did not restore at (1, 1) to the full state")
+    epochs = [x for x in logs[0] if x["type"] == "epoch"]
+    step_ms = _step_ms(epochs)
+    one_step_ms = _step_ms(x for x in one_log if x["type"] == "epoch")
+    print(f"[model_axis] mesh (1, {DP_RANKS}) on {backend}, {DP_RANKS} ranks sharing "
+          f"{min(DP_RANKS, torch.cuda.device_count())} card(s), {ranks[0]['steps']} eager steps a "
+          f"rank: median step {step_ms:.3f} ms (two gloo ranks sharing one card says nothing "
+          f"of NCCL), 1-rank graphed twin {one_step_ms:.3f} ms; fit {ranks[0]['wall_s']:.1f} s, "
+          f"phase {wall_s:.1f} s [{CARD}]")
+    print(f"[model_axis] against the 1-rank run (deterministic cuDNN): step loss rel "
+          f"{loss_rel:.3g}, state {state_abs:.3g}, gamma {gamma_delta:.3g}, acc1 "
+          f"{acc_delta:.3g}; bitwise {bitwise}; kernels ran {ranks[0]['counts']['ran']} / "
+          f"{ranks[1]['counts']['ran']}")
+    for kind, trip in ranks[0]["orbax"].items():
+        print(f"[model_axis] orbax {kind} checkpoint at (1, {DP_RANKS}): {trip['bytes']} bytes, "
+              f"save {trip['save_ms']:.3f} ms, restore {trip['restore_ms']:.3f} ms, bitwise "
+              f"[{CARD}]")
+    pk = ranks[0]["pickle"]
+    print(f"[model_axis] pickle task payload at (1, {DP_RANKS}): {pk['bytes']} bytes, save "
+          f"{pk['save_ms']:.3f} ms (the head gathered first), restore at (1, 1) "
+          f"{pk['restore_ms']:.3f} ms, equal [{CARD}]")
+    return {"backend": backend, "step_ms": step_ms, "one_rank_step_ms": one_step_ms,
+            "steps": ranks[0]["steps"], "launches_per_rank": [o["counts"]["ran"] for o in ranks],
+            "loss_rel": loss_rel, "state_abs": state_abs, "gamma_delta": gamma_delta,
+            "acc1_delta": acc_delta, "bitwise": bitwise,
+            "orbax": {k: {x: v[x] for x in ("bytes", "save_ms", "restore_ms")}
+                      for k, v in ranks[0]["orbax"].items()},
+            "pickle": {x: pk[x] for x in ("bytes", "save_ms", "restore_ms")},
+            "wall_s": wall_s, "fit_s": ranks[0]["wall_s"]}
+
+
+def _write_idx(root, train: bool, x, y) -> None:
+    """``x`` uint8 ``[N, 28, 28, 1]`` and ``y`` as the MNIST IDX files."""
+    import gzip
+    import struct
+
+    import numpy as np
+
+    prefix = "train" if train else "t10k"
+    os.makedirs(root, exist_ok=True)
+    images = struct.pack(">iiii", 0x803, len(x), 28, 28) + np.ascontiguousarray(x).tobytes()
+    labels = struct.pack(">ii", 0x801, len(y)) + np.asarray(y, np.uint8).tobytes()
+    for kind, blob in (("images-idx3-ubyte", images), ("labels-idx1-ubyte", labels)):
+        with gzip.open(os.path.join(root, f"{prefix}-{kind}.gz"), "wb") as f:
+            f.write(blob)
+
+
+def phase_mnist(torch):
+    """The 1-channel family on the card under deterministic cuDNN:
+    ``synthetic_mnist`` on resnet20mnist (2 tasks, 5 + 5 classes) fused and
+    graphed, and per step: bitwise equal; ``resnet32mnist`` for one task;
+    ``--data_set mnist`` on IDX files this phase writes from the same
+    images: bitwise the ``synthetic_mnist`` run."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import (
+        build_raw_dataset,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        idx = os.path.join(tmp, "MNIST", "raw")
+        for train in (True, False):
+            (x, y), _ = build_raw_dataset("synthetic_mnist", "", train, 28)
+            _write_idx(idx, train, x, y)
+        flavours = {
+            "fused": MNIST_ARGV, "per_step": [*MNIST_ARGV, "--no_fused_epochs"],
+            "resnet32mnist": [*MNIST_ARGV, "--backbone", "resnet32mnist", "--num_bases", "10"],
+            "idx": [*MNIST_ARGV, "--data_set", "mnist", "--data_path", tmp],
+        }
+        _deterministic_cudnn(torch, True)
+        try:
+            for name, argv in flavours.items():
+                log = os.path.join(tmp, f"{name}.jsonl")
+                trainer = build_trainer([*argv, "--log_file", log])
+                torch.cuda.synchronize()
+                fl.reset_launches()
+                t0 = time.perf_counter()
+                result = trainer.fit()
+                torch.cuda.synchronize()
+                records = [json.loads(ln) for ln in open(log)]
+                epochs = [r for r in records if r["type"] == "epoch"]
+                runs[name] = {
+                    "result": result, "fit_s": time.perf_counter() - t0,
+                    "steps": trainer.global_step, "counts": _counts(fl),
+                    "captures": trainer.epoch_fn.captures, "step_ms": _step_ms(epochs),
+                    "later_epoch_step_ms": _step_ms(r for r in epochs if r["epoch"] > 1),
+                    "graphed": sorted({r["graphed"] for r in epochs}),
+                    "gammas": [r["gamma"] for r in records if r["type"] == "task"],
+                    "finite": all(math.isfinite(r["loss"]) for r in epochs),
+                    "state": {k: v.detach().cpu().clone()
+                              for k, v in trainer.state.model.state_dict().items()},
+                }
+                del trainer
+        finally:
+            _deterministic_cudnn(torch, False)
+    for name, run in runs.items():
+        _check_counts(f"mnist {name}", run["counts"], run["steps"], run["captures"])
+        check(run["finite"] and run["graphed"] == ([False] if name == "per_step" else [True]),
+              f"mnist {name}: finite {run['finite']}, graphed {run['graphed']}")
+        check(run["state"]["backbone.conv_1_3x3.weight"].shape[1] == 1,
+              f"mnist {name}: the stem does not take one channel")
+    ref = runs["fused"]
+    for name in ("per_step", "idx"):
+        run = runs[name]
+        check(run["result"]["acc1s"] == ref["result"]["acc1s"] and run["gammas"] == ref["gammas"]
+              and _state_equal(torch, run["state"], ref["state"]),
+              f"mnist {name} is not bitwise the fused synthetic_mnist run: acc1s "
+              f"{run['result']['acc1s']} vs {ref['result']['acc1s']}")
+    check(len(runs["resnet32mnist"]["result"]["acc1s"]) == 1, "resnet32mnist: not one task")
+    check(ref["result"]["acc1s"][0] > MNIST_LEARNED,
+          f"synthetic_mnist task 0 did not learn: acc1 {ref['result']['acc1s'][0]}")
+    for name, run in runs.items():
+        print(f"[mnist] {name}: {run['steps']} steps, median step {run['step_ms']:.3f} ms "
+              f"(later epochs {run['later_epoch_step_ms']:.3f}), fit "
+              f"{run['fit_s']:.2f} s, {run['captures']} captures, kernels ran "
+              f"{run['counts']['ran']}, acc1s {[round(a, 3) for a in run['result']['acc1s']]} "
+              f"[{CARD}]")
+    print("[mnist] fused = per step = the IDX run, bitwise under deterministic cuDNN")
+    return {name: {k: run[k] for k in ("steps", "step_ms", "later_epoch_step_ms", "fit_s",
+                                       "captures", "counts")}
+            for name, run in runs.items()}
 
 
 def _step_at(torch, batches, snap, teacher_sd, i, dtype, use_pallas_loss):
@@ -1819,21 +2213,14 @@ def _round_trip(torch, tmp):
     tr._run_epoch_steps(1, task1, 0, gen, clock)
     torch.cuda.synchronize()
 
-    def timed(fn, *args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - t0)
-
     def same_memory(a, b):
         return a.keys() == b.keys() and all(
             all(np.array_equal(x, y) for x, y in zip(a[c], b[c])) for c in a)
 
     new = build_trainer([*DURABLE_ARGV, "--ckpt_dir", ckpt])
     report = {}
-    path, save_ms = timed(ck.save_epoch_checkpoint, tr, 1, 1, 10)
-    ok, load_ms = timed(ck.load_task_checkpoint, new, path)
+    path, save_ms = _timed(torch, ck.save_epoch_checkpoint, tr, 1, 1, 10)
+    ok, load_ms = _timed(torch, ck.load_task_checkpoint, new, path)
     report["epoch"] = {"bytes": os.path.getsize(path), "save_ms": save_ms, "restore_ms": load_ms}
     sd = lambda m: m.state_dict()  # noqa: E731
     check(ok and new.resumed_from["kind"] == "epoch"
@@ -1852,8 +2239,8 @@ def _round_trip(torch, tmp):
           and torch.equal(new.teacher.known, tr.teacher.known),
           "epoch round trip: the counters differ")
     tr.known = 60
-    path, save_ms = timed(ck.save_task_checkpoint, tr, 1)
-    ok, load_ms = timed(ck.load_task_checkpoint, new, path)
+    path, save_ms = _timed(torch, ck.save_task_checkpoint, tr, 1)
+    ok, load_ms = _timed(torch, ck.load_task_checkpoint, new, path)
     report["task"] = {"bytes": os.path.getsize(path), "save_ms": save_ms, "restore_ms": load_ms}
     check(ok and new.resumed_from["kind"] == "task" and new.start_task == 2, "task restore point")
     check(_state_equal(torch, sd(new.state.model), sd(tr.state.model))
@@ -1869,64 +2256,81 @@ def _round_trip(torch, tmp):
 def phase_durability(torch):
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
-        legs = {}
-        chaos_tel = os.path.join(tmp, "chaos_tel")
-        for name in ("twin", "chaos"):
+        legs, events, crash, last_flight = {}, {}, {}, {}
+        for name in ("twin", "chaos", "chaos_orbax"):
             out, log = os.path.join(tmp, f"{name}.pt"), os.path.join(tmp, f"{name}.jsonl")
-            sup_log = os.path.join(tmp, "supervisor.jsonl")
+            sup_log = os.path.join(tmp, f"supervisor_{name}.jsonl")
+            tel = os.path.join(tmp, f"{name}_tel")
             cmd = [sys.executable, os.path.abspath(__file__), "durable", out, *DURABLE_ARGV,
                    "--ckpt_dir", os.path.join(tmp, f"{name}_ckpt"), "--log_file", log]
-            if name == "chaos":
+            if name != "twin":
                 # With a telemetry dir: the injector's on_fatal dumps the
                 # flight recorder before the SIGKILL, and the supervisor
                 # harvests that dump into crash_report.json before the
                 # relaunch writes its own.
                 cmd = [sys.executable, os.path.join(here, "scripts", "supervise.py"),
                        "--backoff_base", "0.1", "--backoff_max", "0.5", "--max_failures", "2",
-                       "--log", sup_log, "--telemetry_dir", chaos_tel, "--", *cmd,
-                       "--fault_spec", DURABLE_KILL, "--telemetry_dir", chaos_tel]
-            rc, wall_s, tail = _run_leg(cmd, here, sup_log if name == "chaos" else None)
+                       "--log", sup_log, "--telemetry_dir", tel, "--", *cmd,
+                       "--fault_spec", DURABLE_KILL, "--telemetry_dir", tel]
+            if name == "chaos_orbax":
+                cmd += ["--ckpt_backend", "orbax"]
+            rc, wall_s, tail = _run_leg(cmd, here, sup_log if name != "twin" else None)
             check(rc == 0 and os.path.exists(out), f"durability leg {name} exited {rc}: {tail}")
             legs[name] = torch.load(out)
             legs[name]["wall_s"] = wall_s
             legs[name]["log"] = [json.loads(ln) for ln in open(log)]
-        events = [json.loads(ln) for ln in open(sup_log)]
-        crash = json.load(open(os.path.join(chaos_tel, "crash_report.json")))
-        last_flight = json.load(open(os.path.join(chaos_tel, "flight_0.json")))
+            if name != "twin":
+                events[name] = [json.loads(ln) for ln in open(sup_log)]
+                crash[name] = json.load(open(os.path.join(tel, "crash_report.json")))
+                last_flight[name] = json.load(open(os.path.join(tel, "flight_0.json")))
         report = _round_trip(torch, tmp)
 
     twin, chaos = legs["twin"], legs["chaos"]
-    check([e["event"] for e in events] == ["launch", "exit", "crash_report", "relaunch",
+    for name, ext in (("chaos", "ckpt"), ("chaos_orbax", "orbax")):
+        ev, leg = events[name], legs[name]
+        check([e["event"] for e in ev] == ["launch", "exit", "crash_report", "relaunch",
                                            "launch", "exit", "done"]
-          and events[1]["returncode"] == -9
-          and [e["cmd"].count("--resume") for e in events if e["event"] == "launch"] == [0, 1],
-          f"the supervisor's events: {[(e['event'], e.get('returncode')) for e in events]}")
-    check(chaos["resumed_from"] is not None and chaos["resumed_from"]["kind"] == "epoch"
-          and chaos["resumed_from"]["path"].endswith("task_002_epoch_001.ckpt")
-          and chaos["start"] == [2, 1],
-          f"the relaunch resumed from {chaos['resumed_from']} at {chaos['start']}")
+              and ev[1]["returncode"] == -9
+              and [e["cmd"].count("--resume") for e in ev if e["event"] == "launch"] == [0, 1],
+              f"{name}: the supervisor's events: {[(e['event'], e.get('returncode')) for e in ev]}")
+        check(leg["resumed_from"] is not None and leg["resumed_from"]["kind"] == "epoch"
+              and leg["resumed_from"]["path"].endswith(f"task_002_epoch_001.{ext}")
+              and leg["start"] == [2, 1],
+              f"{name}: the relaunch resumed from {leg['resumed_from']} at {leg['start']}")
     for name, leg in legs.items():
         _check_counts(name, leg["counts"], leg["steps"], leg["captures"])
         check(all(r["fused"] is True and r["graphed"] is True
                   for r in leg["log"] if r["type"] == "epoch"),
               f"{name}: the durability leg did not run the fused, graphed epoch")
-    check(chaos["step0"] + chaos["steps"] == twin["steps"],
-          f"steps: {chaos['step0']} restored + {chaos['steps']} run != {twin['steps']}")
-
     core = [r for r in twin["log"] if r["type"] in CORE_RECORDS]
     types = [r["type"] for r in core]
     cut = next(i for i, r in enumerate(core)
                if r["type"] == "epoch" and (r["task_id"], r["epoch"]) == (2, 1)) + 1
     want = types[:cut] + ["fault_injected", "run", "resume"] + types[cut:]
-    got = [r["type"] for r in chaos["log"] if r["type"] in CORE_RECORDS]
-    check(got == want, f"chaos record sequence {got}")
-    # The killed child's flight recorder, dumped by the injector's on_fatal.
-    dumps = crash["flight_dumps"]
-    check(crash["returncode"] == -9 and len(dumps) == 1 and dumps[0]["reason"] == "fatal"
-          and any(e.get("type") == "fault_injected" for e in dumps[0]["events"])
-          and last_flight["reason"] == "close",
-          f"flight dumps: {[(d['reason'], d['last_open_span']) for d in dumps]}, the "
-          f"relaunch's {last_flight['reason']}")
+    for name in ("chaos", "chaos_orbax"):
+        leg = legs[name]
+        check(leg["step0"] + leg["steps"] == twin["steps"],
+              f"{name} steps: {leg['step0']} restored + {leg['steps']} run != {twin['steps']}")
+        got = [r["type"] for r in leg["log"] if r["type"] in CORE_RECORDS]
+        check(got == want, f"{name} record sequence {got}")
+        # The killed child's flight recorder, dumped by the injector's on_fatal.
+        dumps = crash[name]["flight_dumps"]
+        check(crash[name]["returncode"] == -9 and len(dumps) == 1
+              and dumps[0]["reason"] == "fatal"
+              and any(e.get("type") == "fault_injected" for e in dumps[0]["events"])
+              and last_flight[name]["reason"] == "close",
+              f"{name} flight dumps: {[(d['reason'], d['last_open_span']) for d in dumps]}, "
+              f"the relaunch's {last_flight[name]['reason']}")
+    orbax = legs["chaos_orbax"]
+    check(orbax["result"]["acc1s"] == twin["result"]["acc1s"]
+          and orbax["result"]["acc_matrix"] == twin["result"]["acc_matrix"]
+          and [r["gamma"] for r in orbax["log"] if r["type"] == "task"]
+          == [r["gamma"] for r in twin["log"] if r["type"] == "task"]
+          and _state_equal(torch, orbax["state"], twin["state"]),
+          f"the orbax kill-and-resume is not bitwise its twin: acc1s {orbax['result']['acc1s']} "
+          f"vs {twin['result']['acc1s']}, state delta "
+          f"{_state_delta(torch, orbax['state'], twin['state'])[0]:.3g}")
+    dumps = crash["chaos"]["flight_dumps"]
 
     gammas = {n: [r["gamma"] for r in leg["log"] if r["type"] == "task"]
               for n, leg in legs.items()}
@@ -1948,7 +2352,11 @@ def phase_durability(torch):
               f"the resumed run is outside the tolerances: {deltas}")
     print(f"[durable] twin {twin['wall_s']:.1f} s wall (fit {twin['fit_s']:.1f} s, "
           f"{twin['steps']} steps); chaos {chaos['wall_s']:.1f} s wall under the supervisor "
-          f"(resumed fit {chaos['fit_s']:.1f} s, {chaos['steps']} steps) [{CARD}]")
+          f"(resumed fit {chaos['fit_s']:.1f} s, {chaos['steps']} steps); the orbax leg "
+          f"{orbax['wall_s']:.1f} s wall (resumed fit {orbax['fit_s']:.1f} s) [{CARD}]")
+    print(f"[durable] --ckpt_backend orbax: killed at task 2 epoch 1, resumed from "
+          f"{os.path.basename(orbax['resumed_from']['path'])}, bitwise equal to the twin; "
+          f"kernels ran {orbax['counts']['ran']} times after the resume")
     print(f"[durable] the killed child's flight_0.json: reason {dumps[0]['reason']}, last "
           f"open span {dumps[0]['last_open_span']}, {len(dumps[0]['events'])} events, harvested "
           f"into crash_report.json")
@@ -1970,7 +2378,8 @@ def phase_durability(torch):
 
 
 def launch_cli(argv) -> int:
-    """``launch2``: the CLI at ``DP_RANKS`` data-parallel ranks."""
+    """``launch2``: the CLI at ``DP_RANKS`` ranks (``--mesh_data 2``, or
+    ``--mesh_data 1 --mesh_model 2`` for the model axis)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2068,12 +2477,15 @@ def main() -> int:
         CARD = smi
         err = phase_kernels(torch)
         timing = phase_timing(torch)
+        widths = phase_widths(torch)
         augment = phase_augment(torch)
         launches = phase_main_path(torch)
         herding = phase_herding(launches)
         precision = phase_precision(torch)
         fused = phase_fused(torch)
         dp = phase_data_parallel(torch)
+        model_axis = phase_model_axis(torch)
+        mnist = phase_mnist(torch)
         durability = phase_durability(torch)
     except (SmokeFailure, ImportError) as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
@@ -2139,6 +2551,9 @@ def main() -> int:
     print(json.dumps({"fused": fused, "main_path": {k: launches[k] for k in (
         "step_ms", "replay_step_ms", "fit_s", "captures", "profiled", "telemetry")},
         "herding": herding, "card": smi}))
+    print(json.dumps({"model_axis": model_axis, "mnist": mnist,
+                      "kernel_widths": sorted({w for _, w, _ in GRID + NEW_WIDTHS}),
+                      "width_timing": widths, "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

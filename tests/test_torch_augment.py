@@ -139,10 +139,10 @@ def test_augment_config_from_config_matches_jax(recipe):
 # --------------------------------------------------------------------------- #
 
 
-def _jax_draws(key, b, cfg):
+def _jax_draws(key, b, cfg, shape=(32, 32, 3)):
     """The parameters ``jaug.train_augment(key, ·, cfg)`` draws for ``b``
-    32x32x3 images, as the port's ``Draws``."""
-    h = w = 32
+    images of ``shape`` (H, W, C), as the port's ``Draws``."""
+    h, w, c = shape
     cols = {k: [] for k in ("oy", "ox", "flip", "ra_op", "ra_mag", "ra_sign", "ra_apply",
                             "ra_bicubic", "jitter", "erase_do", "erase_area",
                             "erase_log_ratio", "erase_oy", "erase_ox", "erase_noise")}
@@ -151,7 +151,8 @@ def _jax_draws(key, b, cfg):
         ky, kx = jax.random.split(kcrop)
         cols["oy"].append(int(jax.random.randint(ky, (), 0, 2 * cfg.crop_padding + 1)))
         cols["ox"].append(int(jax.random.randint(kx, (), 0, 2 * cfg.crop_padding + 1)))
-        cols["flip"].append(bool(jax.random.bernoulli(kflip)))
+        if cfg.hflip:
+            cols["flip"].append(bool(jax.random.bernoulli(kflip)))
         if cfg.rand_augment:
             rk, row = kra, {n: [] for n in ("op", "mag", "sign", "apply", "bicubic")}
             for i in range(cfg.ra_num_ops):
@@ -180,8 +181,8 @@ def _jax_draws(key, b, cfg):
                     kar, (), minval=jnp.log(0.3), maxval=jnp.log(10 / 3))))
                 row["oy"].append(int(jax.random.randint(ky, (), 0, h)))
                 row["ox"].append(int(jax.random.randint(kx, (), 0, w)))
-                shape = (h, w, 3) if cfg.remode == "pixel" else (3,)
-                row["noise"].append(np.asarray(jax.random.normal(knoise, shape, jnp.float32)))
+                noise = (h, w, c) if cfg.remode == "pixel" else (c,)
+                row["noise"].append(np.asarray(jax.random.normal(knoise, noise, jnp.float32)))
             for n in row:
                 cols["erase_" + n].append(row[n])
     dtypes = {"flip": torch.bool, "ra_apply": torch.bool, "ra_bicubic": torch.bool,

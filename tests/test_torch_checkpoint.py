@@ -12,6 +12,13 @@ CPU, at the size of ``tests/test_checkpoint.py``'s ``_cfg``.
 * The seed-mismatch refusal, a fresh start without a checkpoint, the
   transient ``save_ioerror`` at a task and at an epoch boundary, and the
   no-alias check of ``--check_donation``.
+* The ``orbax`` backend (``torch.distributed.checkpoint`` at one rank): the
+  layout (a directory, its ``.meta`` and the ``.meta``'s ``.sha256``), the
+  JAX scan's refusal of a directory without its ``.meta``, the damage of
+  ``corrupt_ckpt``/``truncate_ckpt`` (to the ``.meta``, as JAX), a run
+  killed after an epoch checkpoint whose relaunch ends bitwise equal to the
+  pickle twin, and JAX's ``test_kill_and_resume_reproduces[orbax]`` case:
+  with ``task_001.orbax`` and its ``.meta`` deleted, a resume from task 0.
 """
 
 import contextlib
@@ -350,9 +357,9 @@ def test_check_donation_proves_no_alias_then_poisons(twin, monkeypatch, restore)
     # ``torch.from_numpy`` does) instead of copying into it: caught.
     copy_into = tck._copy_into
 
-    def rebinding(named, arrays, what):
+    def rebinding(model, named, arrays, what):
         named = list(named)
-        copy_into(named, arrays, what)
+        copy_into(model, named, arrays, what)
         if what == "params":
             name, p = named[0]
             p.data = torch.from_numpy(arrays[name])
@@ -360,3 +367,113 @@ def test_check_donation_proves_no_alias_then_poisons(twin, monkeypatch, restore)
     monkeypatch.setattr(tck, "_copy_into", rebinding)
     with pytest.raises(tck.CheckpointAliasError, match="share memory"):
         CilTrainer(cfg, device="cpu")
+
+
+# --------------------------------------------------------------------------- #
+# The orbax backend
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def orbax_chain(twin, tmp_path_factory):
+    """The twin's recipe on ``--ckpt_backend orbax``: resumed from the
+    twin's task-0 payload, which it saves again as ``task_000.orbax`` (the
+    save the loop makes after task 0) in place of the pickle; killed by
+    ``raise@task1.epoch1`` right after that epoch's checkpoint; relaunched
+    with ``--resume``."""
+    d = tmp_path_factory.mktemp("orbax")
+    ckpt = str(d / "ckpt")
+    _copy_ckpt(twin["ckpt"], ckpt, "task_000.ckpt")
+    cfg = _cfg(ckpt_dir=ckpt, ckpt_backend="orbax", epoch_ckpt_every=1, fault_spec=SPEC,
+               resume=True, log_file=str(d / "run.jsonl"))
+    with deadline(TEST_LIMIT_S):
+        first = CilTrainer(cfg, device="cpu")
+        tck.save_task_checkpoint(first, 0)
+        for name in ("task_000.ckpt", "task_000.ckpt.sha256"):
+            os.remove(os.path.join(ckpt, name))
+        with pytest.raises(FaultInjected):
+            first.fit()
+        after_crash = sorted(os.listdir(ckpt))
+        epoch_dir = sorted(os.listdir(os.path.join(ckpt, "task_001_epoch_001.orbax")))
+        second = CilTrainer(cfg.replace(check_donation=True), device="cpu")
+        result = second.fit()
+    return {"after_crash": after_crash, "epoch_dir": epoch_dir, "second": second,
+            "result": result, "ckpt": ckpt}
+
+
+def test_orbax_layout_at_one_rank(orbax_chain):
+    names = orbax_chain["after_crash"]
+    for stem in ("task_000.orbax", "task_001_epoch_001.orbax"):
+        assert {stem, stem + ".meta", stem + ".meta.sha256"} <= set(names)
+    assert not any(n.endswith((".tmp", ".ckpt")) for n in names)
+    assert orbax_chain["epoch_dir"] == [".metadata", "__0_0.distcp"]
+    meta, why = tck._read_payload(os.path.join(orbax_chain["ckpt"], "task_001.orbax"))
+    assert why is None and meta["task_id"] == 1 and "params" not in meta
+
+
+def test_orbax_epoch_resume_equals_the_twin(twin, orbax_chain):
+    second = orbax_chain["second"]
+    assert (second.start_task, second.start_epoch) == (1, 1)
+    assert second.resumed_from["path"].endswith("task_001_epoch_001.orbax")
+    assert orbax_chain["result"]["acc1s"] == twin["result"]["acc1s"]
+    ref_t = twin["trainer"]
+    for name, want in ref_t.state.model.state_dict().items():
+        assert torch.equal(second.state.model.state_dict()[name], want), name
+    for want, got in zip(ref_t.state.momentum, second.state.momentum):
+        assert torch.equal(got, want)
+    for name, want in ref_t.teacher.model.state_dict().items():
+        assert torch.equal(second.teacher.model.state_dict()[name], want), name
+    names = os.listdir(orbax_chain["ckpt"])
+    assert "task_001.orbax" in names and not any("epoch" in n for n in names)
+
+
+def test_orbax_resume_from_task_0_as_jax(twin, orbax_chain, tmp_path):
+    """JAX ``tests/test_checkpoint.py:39-80`` (orbax): delete
+    ``task_001.orbax`` and its ``.meta``; the resume starts at task 1 from
+    task 0's checkpoint, whose state is the twin's after task 0."""
+    ckpt = str(tmp_path / "ckpt")
+    shutil.copytree(orbax_chain["ckpt"], ckpt)
+    shutil.rmtree(os.path.join(ckpt, "task_001.orbax"))
+    os.remove(os.path.join(ckpt, "task_001.orbax.meta"))
+    want = [(0, None, "task_000.orbax")]
+    for mod in (tck, jck):
+        got = [(t, e, os.path.basename(p)) for t, e, p in mod.checkpoint_candidates(ckpt)]
+        assert got == want
+    resumed = CilTrainer(_cfg(ckpt_dir=ckpt, ckpt_backend="orbax", resume=True),
+                         device="cpu")
+    assert (resumed.start_task, resumed.known, resumed.memory.nb_classes) == (1, 5, 5)
+    assert resumed.teacher is not None
+    payload, _ = tck._read_payload(os.path.join(twin["ckpt"], "task_000.ckpt"))
+    for name, p in resumed.state.model.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), payload["params"][name])
+    for name, b in resumed.state.model.named_buffers():
+        np.testing.assert_array_equal(b.numpy(), payload["batch_stats"][name])
+
+
+def test_orbax_directory_without_meta_is_skipped_as_jax(orbax_chain, tmp_path):
+    dirs = {}
+    for name in ("port", "jax"):
+        d = tmp_path / name
+        shutil.copytree(orbax_chain["ckpt"], d)
+        os.remove(d / "task_001.orbax.meta")  # the directory alone
+        (d / "task_002.orbax.tmp").mkdir()     # a save cut short
+        dirs[name] = str(d)
+    got = [(t, e, os.path.basename(p)) for t, e, p in tck.checkpoint_candidates(dirs["port"])]
+    want = [(t, e, os.path.basename(p)) for t, e, p in jck.checkpoint_candidates(dirs["jax"])]
+    assert got == want == [(0, None, "task_000.orbax")]
+    assert "task_002.orbax.tmp" not in os.listdir(dirs["port"])
+
+
+@pytest.mark.parametrize("action", ["corrupt_ckpt", "truncate_ckpt"])
+def test_orbax_payload_faults_damage_the_meta_as_jax(orbax_chain, tmp_path, action):
+    copies = {}
+    for name, mod in (("port", tck), ("jax", jck)):
+        d = tmp_path / name
+        shutil.copytree(orbax_chain["ckpt"], d)
+        path = str(d / "task_000.orbax")
+        mod._apply_payload_faults((action,), path)
+        copies[name] = path
+    port, jax_ = copies["port"], copies["jax"]
+    assert open(port + ".meta", "rb").read() == open(jax_ + ".meta", "rb").read()
+    assert tck._read_payload(port)[1] == jck._read_payload(jax_)[1] is not None
+    assert sorted(os.listdir(port)) == [".metadata", "__0_0.distcp"]  # untouched

@@ -141,11 +141,6 @@ def test_mesh_data_must_equal_the_world_size(no_dist_env):
         build_trainer([*SLICE_FLAGS, "--mesh_data", "2"])
 
 
-def test_mesh_model_is_a_later_slice(no_dist_env):
-    with pytest.raises(NotImplementedError, match="mesh_model 2.*slice"):
-        build_trainer([*SLICE_FLAGS, "--mesh_model", "2"])
-
-
 def test_bn_group_size_that_splits_a_group_raises(no_dist_env):
     with pytest.raises(ValueError, match="bn group size 3"):
         build_trainer([*SLICE_FLAGS, "--batch_size", "8", "--bn_group_size", "3"])

@@ -12,10 +12,14 @@ from JAX's seed-``s`` weights, or from the port's own, to show which.
     JAX_PLATFORMS=cpu python tests/test_torch_race_init.py 0 10          # JAX's seed-0 weights
     JAX_PLATFORMS=cpu python tests/test_torch_race_init.py 0 10 --port   # the port's own
     JAX_PLATFORMS=cpu python tests/test_torch_race_init.py save 0 build/jax_seed0_init.pt
+    JAX_PLATFORMS=cpu python tests/test_torch_race_init.py ks 20        # the laws' shapes
 
-The last writes JAX's seed-0 weights for ``chip_smoke.py race ... --init_state
+``save`` writes JAX's seed-0 weights for ``chip_smoke.py race ... --init_state
 build/jax_seed0_init.pt``, which runs the whole protocol on the card from
-them.  The tests hold the helper to the JAX trainer's own initial state, and
+them.  ``ks`` runs a two-sample Kolmogorov-Smirnov test a layer, the
+port's draws against JAX's over ``K`` seeds a side (seeds 0..K-1), for
+resnet32 and the task-0 head; it is a measurement, not a test of the
+suite.  The tests hold the helper to the JAX trainer's own initial state, and
 the port's initial weights to the same law as JAX's, layer by layer.
 """
 
@@ -154,8 +158,37 @@ def probe(seed: int, epochs: int, port_init: bool) -> list:
     return ces
 
 
+def ks_layers(nb_seeds: int) -> list:
+    """Per initialized tensor of resnet32 and the task-0 head (its 50 rows):
+    the two-sample KS statistic and p-value of the port's values against
+    JAX's, each pooled over seeds ``0..nb_seeds-1``.  Prints one line a
+    layer, then the smallest p-value and the count below 0.01 and below the
+    Bonferroni bound 0.01 / layers."""
+    from scipy.stats import ks_2samp
+
+    port = [port_initial_state(s, "resnet32", 100, 50) for s in range(nb_seeds)]
+    jaxs = [jax_initial_state(s, "resnet32", 100, 50) for s in range(nb_seeds)]
+    rows = []
+    for name, ref in port[0].items():
+        if name.endswith(("running_mean", "running_var")) or ".bn" in name:
+            continue  # constants on both sides (1 and 0), held equal by the test above
+        cut = slice(0, 50) if name.startswith("fc.") else slice(None)
+        a = np.concatenate([p[name][cut].numpy().ravel() for p in port])
+        b = np.concatenate([j[name][cut].numpy().ravel() for j in jaxs])
+        res = ks_2samp(a, b)
+        rows.append((name, a.size, float(res.statistic), float(res.pvalue)))
+        print(f"{name:45s} n={a.size:8d} D={res.statistic:.5f} p={res.pvalue:.4g}", flush=True)
+    p = [r[3] for r in rows]
+    print(f"layers {len(rows)}, seeds {nb_seeds} a side: min p {min(p):.4g}, "
+          f"p < 0.01: {sum(x < 0.01 for x in p)}, p < 0.01/{len(rows)} (Bonferroni): "
+          f"{sum(x < 0.01 / len(rows) for x in p)}")
+    return rows
+
+
 if __name__ == "__main__":
-    if sys.argv[1] == "save":
+    if sys.argv[1] == "ks":
+        ks_layers(int(sys.argv[2]))
+    elif sys.argv[1] == "save":
         import torch
 
         torch.save(jax_initial_state(int(sys.argv[2]), "resnet32", 100, 50), sys.argv[3])

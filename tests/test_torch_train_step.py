@@ -47,8 +47,8 @@ def _count(n):
     return torch.tensor([n], dtype=torch.int32)
 
 
-def _port_model(variables):
-    model = tm.CilModel("resnet20", 10)
+def _port_model(variables, backbone="resnet20"):
+    model = tm.CilModel(backbone, 10)
     model.load_state_dict(from_jax_variables(variables["params"], variables["batch_stats"]))
     return model
 
@@ -59,10 +59,12 @@ def _as_param_list(model, tree, stats):
     return [sd[name].clone() for name, _ in model.named_parameters()]
 
 
-def _setup(smooth):
+def _setup(smooth, backbone="resnet20", shape=(32, 32, 3)):
     """Teacher after task 0 (5 classes), student grown to 10 classes, a
-    random momentum buffer, a normalized batch and labels."""
-    model, variables = jm.create_model("resnet20", nb_classes=10)
+    random momentum buffer, a normalized batch of ``shape`` images and
+    labels."""
+    model, variables = jm.create_model(backbone, nb_classes=10, input_size=shape[0],
+                                       channels=shape[2])
     variables = jm.grow(variables, jax.random.PRNGKey(0), 0, 5)
     teacher = jax.device_get(unfreeze(variables))
     variables = jax.device_get(unfreeze(jm.grow(variables, jax.random.PRNGKey(1), 5, 5)))
@@ -70,12 +72,12 @@ def _setup(smooth):
     momentum = jax.tree_util.tree_map(
         lambda p: (0.01 * rng.randn(*p.shape)).astype(np.float32), variables["params"]
     )
-    x = rng.randn(8, 32, 32, 3).astype(np.float32)
+    x = rng.randn(8, *shape).astype(np.float32)
     y = rng.randint(0, 10, 8).astype(np.int64)
     return model, variables, teacher, momentum, x, y
 
 
-def _jax_step(variables, teacher, momentum, x, y, smooth):
+def _jax_step(variables, teacher, momentum, x, y, smooth, backbone="resnet20"):
     """The JAX composition, run in float64 (``CilModel(dtype=float64)`` under
     ``jax.enable_x64``).  XLA:CPU's float32 backward through the stride-2
     convolutions lands ~1e-3 (relative) away from a float64 reference on
@@ -83,7 +85,7 @@ def _jax_step(variables, teacher, momentum, x, y, smooth):
     JAX and the port's float64 twin agree to ~5e-8, and the port's float32
     step is held to the stated tolerance against it."""
     with jax.enable_x64(True):
-        model = jm.CilModel(backbone_name="resnet20", width=10, dtype=jnp.float64)
+        model = jm.CilModel(backbone_name=backbone, width=10, dtype=jnp.float64)
         f64 = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), t)
 
         @jax.jit
@@ -238,8 +240,6 @@ def test_cli_on_cpu_writes_the_record_sequence(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--ckpt_backend", "orbax"],
-    ["--aa", "none", "--color_jitter", "0", "--mesh_model", "2"],
     ["--aa", "none", "--color_jitter", "0", "--fault_spec", "replica_die@task0"],
     ["--aa", "none", "--color_jitter", "0", "--fault_spec", "kill@task1,swap_ioerror@task1"],
     ["--aa", "none", "--color_jitter", "0", "--export_dir", "exp"],
