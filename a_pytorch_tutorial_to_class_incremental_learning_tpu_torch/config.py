@@ -5,10 +5,9 @@ Same field names, flag names and defaults as the JAX package's
 augmentation (RandAugment or colour jitter, random erasing) under every
 precision preset, on one device or over a ``(data, model)`` mesh of
 processes, with pickle or sharded (``orbax``) checkpoints, resume, the
-training-side fault sites, the telemetry and its sentinels (threads,
-contracts, lockstep, recompile budget); every flag that selects something
-outside it (serving) is rejected by :func:`check_supported` with the name
-of the slice that will bring it, never silently ignored.
+fault sites, the telemetry and its sentinels (threads, contracts, lockstep,
+recompile budget), and the serving export (``--export_dir``,
+``--serve_buckets``, ``--serve_skew_check``).
 """
 
 from __future__ import annotations
@@ -150,36 +149,6 @@ class CilConfig:
 
     def replace(self, **kw) -> "CilConfig":
         return dataclasses.replace(self, **kw)
-
-
-def _serves(fault_spec: Optional[str]) -> bool:
-    """True when the spec has a clause that fires only at a ``serve.*``
-    site (the serving fleet's)."""
-    if not fault_spec:
-        return False
-    from faults import ACTIONS, parse_fault_spec
-
-    return any(all(site.startswith("serve.") for site in ACTIONS[c.action])
-               for c in parse_fault_spec(fault_spec))
-
-
-# (field, predicate that is True when the value is outside this slice, slice)
-_LATER_SLICES = (
-    ("fault_spec", _serves, "serving"),
-    ("export_dir", lambda v: v is not None, "serving"),
-    ("serve_skew_check", bool, "serving"),
-)
-
-
-def check_supported(config: CilConfig) -> None:
-    """Raise ``NotImplementedError`` for any option this slice does not run."""
-    for field, outside, later in _LATER_SLICES:
-        value = getattr(config, field)
-        if outside(value):
-            raise NotImplementedError(
-                f"{field}={value!r} is not ported yet: it arrives with the "
-                f"{later} slice of the PyTorch port"
-            )
 
 
 def get_args_parser() -> argparse.ArgumentParser:

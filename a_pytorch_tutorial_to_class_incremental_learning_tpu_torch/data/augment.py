@@ -389,13 +389,24 @@ def color_jitter(img: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
     return round_u8(color(img, factors[:, 2]))
 
 
-@functools.lru_cache(maxsize=None)
-def _normalize_consts(mean, std, device):
-    """``255·mean`` and ``255·std`` on ``device``, made once (a fresh copy
-    from the host each call would wait for the card)."""
+def _make_normalize_consts(mean, std, device):
     m = torch.tensor(mean, dtype=torch.float32) * 255.0
     s = torch.tensor(std, dtype=torch.float32) * 255.0
     return m.to(device), s.to(device)
+
+
+_cached_normalize_consts = functools.lru_cache(maxsize=None)(_make_normalize_consts)
+
+
+def _normalize_consts(mean, std, device):
+    """``255·mean`` and ``255·std`` on ``device``, made once (a fresh copy
+    from the host each call would wait for the card).  Under tracing
+    (``torch.export``, ``torch.compile``) they are made afresh and never
+    cached: a traced call makes symbolic tensors, which would poison every
+    later eager call of the process."""
+    if torch.compiler.is_compiling():
+        return _make_normalize_consts(mean, std, device)
+    return _cached_normalize_consts(mean, std, device)
 
 
 def normalize(img: torch.Tensor, cfg: AugmentConfig) -> torch.Tensor:

@@ -5,7 +5,6 @@ rehearsal exemplars, grow the head and reset SGD, run the epochs (with the
 reference's eval cadence), weight-align the new head (tasks > 0), evaluate
 every seen task's slice, snapshot the teacher (a deep copy), herd the next
 memory, and write the ``run/epoch/task/cil_metrics/final`` JSONL records.
-The serving export arrives with a later slice.
 
 The fused epoch (``--fused_epochs``, the parser's default; JAX
 ``engine/loop.py:715``): when the task's pixels are uint8, its dataset goes
@@ -105,6 +104,14 @@ from the full, unsharded feature pass.  Files and agreements go by the
 global rank: rank 0 writes the JSONL log and prints; rank ``r > 0`` writes
 ``<name>_p<r>.jsonl``.
 
+Serving (``--export_dir``, ``serving/``; JAX ``engine/loop.py:606-610``):
+after each task's ``cil_metrics`` record and before the teacher snapshot,
+the aligned model is exported as a per-task artifact under the span
+``export_artifact`` (``serve_export``); ``--serve_skew_check`` reloads it
+and re-scores every seen slice through it (``serve_skew``).  The export
+and reload capture graphs of their own, none of the ``train`` group's, so
+the ``recompile`` records are unchanged.
+
 MNIST and the 1-channel backbones (``--data_set mnist|synthetic_mnist``,
 ``--backbone resnet20mnist|resnet32mnist``): the channel count comes from
 the backbone's name, and a channel or size mismatch with the data, or
@@ -123,7 +130,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import CilConfig, check_supported
+from ..config import CilConfig
 from ..data import (
     RehearsalMemory,
     build_scenario,
@@ -180,7 +187,6 @@ class CilTrainer:
     experiment on ``device`` (CUDA unless the caller asks for ``"cpu"``)."""
 
     def __init__(self, config: CilConfig, device: Optional[str] = None):
-        check_supported(config)
         self.config = config
         self.device = resolve_device(device)
         self.mesh = make_mesh(config.mesh_shape)
@@ -525,6 +531,12 @@ class CilTrainer:
                     avg_incremental_acc1=round(average_incremental_accuracy(self.acc1s), 5),
                     **self.matrix.summary(),
                 )
+                # The serving artifact: the just-aligned model, frozen before
+                # the teacher snapshot (serving/artifact.py).  Every rank
+                # calls it: the head's gather and the barrier are collective.
+                if self.config.export_dir:
+                    with tel.span("export_artifact", task=task_id):
+                        self._export_artifact(task_id, nb_new, acc_per_task)
                 # Teacher snapshot: a deep copy, so the student's in-place
                 # SGD updates never reach it.
                 with tel.span("teacher_snapshot", task=task_id):
@@ -592,6 +604,41 @@ class CilTrainer:
             # run: a resume falls back to the newest checkpoint that landed.
             print(f"| task checkpoint save failed: {e!r}")
             self.jsonl.log("ckpt_save_error", error=repr(e), task_id=task_id)
+
+    def _export_artifact(self, task_id: int, nb_new: int, acc_per_task) -> None:
+        """Freeze the post-alignment model as a serving artifact (rank 0
+        writes; a ``serve_export`` record).  As with checkpoint saves, a
+        failed export costs this task's artifact, never the run.  With
+        ``--serve_skew_check`` the artifact is reloaded and each seen task's
+        validation slice re-scored through it (``serve_skew``).  The export
+        works on a model of its own, so no tensor the captured train step
+        reads is rebound."""
+        from ..serving import export_from_trainer, load_artifact, measure_skew
+
+        known = self.known + nb_new
+        t0 = time.time()
+        try:
+            path = export_from_trainer(self, task_id, known_after=known,
+                                       acc_per_task=acc_per_task)
+        except OSError as e:
+            print(f"| serving artifact export failed: {e!r}")
+            self.jsonl.log("serve_export", task_id=task_id, error=repr(e))
+            return
+        if path is None:
+            return  # another rank wrote it
+        self.jsonl.log("serve_export", task_id=task_id, path=path, known=known,
+                       buckets=list(self.config.serve_buckets),
+                       seconds=round(time.time() - t0, 2))
+        if self.config.serve_skew_check:
+            try:
+                artifact = load_artifact(path, self.device)
+                measure_skew(artifact, self.scenario_val, sink=self.jsonl,
+                             train_acc_per_task=acc_per_task)
+            except OSError as e:
+                # The skew check observes; a reload failure is itself the
+                # signal worth logging.
+                print(f"| serve skew check failed: {e!r}")
+                self.jsonl.log("serve_export", task_id=task_id, error=repr(e))
 
     def _save_epoch_checkpoint(self, task_id: int, epoch: int, nb_new: int) -> None:
         cfg = self.config

@@ -19,7 +19,12 @@ Contract (consumed by the watchdog and documented in README):
 Long blocking calls (a graph capture, a fused-epoch device wait) release the
 GIL, so the optional background thread keeps beating through them — the loop
 only has to ``update()`` the state fields; the thread owns the cadence.  The
-thread writes files only: it never touches CUDA.
+thread writes files only: it never touches CUDA.  While it runs, a forced
+beat from the loop is stamped and put in the flight ring at once, in the
+loop's order, and the thread writes its file and the flight dump: the loop
+never waits on the disk (two fsyncs a beat, five beats a task).  This
+departs from the JAX package, whose forced beats write on the loop's
+thread; the files and the ring are the same.
 """
 
 from __future__ import annotations
@@ -74,6 +79,8 @@ class Heartbeat:
         self._last_write = 0.0
         self._lock = threading.Lock()
         self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._pending: Optional[dict] = None  # a forced beat the thread writes
         self._thread: Optional[threading.Thread] = None
         if self.path:
             os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
@@ -91,8 +98,15 @@ class Heartbeat:
             # _last_write is written by the daemon thread under the lock;
             # reading it outside raced the cadence decision (jaxlint JL305).
             due = force or now - self._last_write >= self.interval_s
-        if due:
+        if not due:
+            return
+        if self._thread is None:
             self._write()
+            return
+        payload = self._beat()
+        with self._lock:
+            self._pending = payload
+        self._wake.set()
 
     def start(self) -> None:
         if not self.enabled or self._thread is not None:
@@ -106,8 +120,13 @@ class Heartbeat:
     def stop(self) -> None:
         if self._thread is not None:
             self._stop.set()
+            self._wake.set()
             self._thread.join(timeout=self.interval_s + 5.0)
             self._thread = None
+        with self._lock:
+            payload, self._pending = self._pending, None
+        if payload is not None:
+            self._persist(payload)
         if self.enabled:
             self._write()  # final beat: the freshest possible "last seen"
 
@@ -116,10 +135,23 @@ class Heartbeat:
     def _run(self) -> None:
         # Half the interval keeps worst-case staleness (a beat just missed
         # plus a full sleep) under the 2x-interval freshness contract.
-        while not self._stop.wait(self.interval_s / 2.0):
-            self._write()
+        while True:
+            woken = self._wake.wait(self.interval_s / 2.0)
+            self._wake.clear()
+            if self._stop.is_set():
+                return
+            with self._lock:
+                payload, self._pending = self._pending, None
+            if payload is not None:
+                self._persist(payload)  # a forced beat of the loop's
+            elif not woken:
+                self._write()  # the cadence
 
     def _write(self) -> None:
+        self._persist(self._beat())
+
+    def _beat(self) -> dict:
+        """Stamp the next beat and record it in the flight ring."""
         with self._lock:
             self._seq += 1
             payload = {
@@ -134,6 +166,12 @@ class Heartbeat:
                 "process_index": self.process_index,
                 **self._state,
             }
+        if self.flight is not None:
+            self.flight.record(payload)
+        return payload
+
+    def _persist(self, payload: dict) -> None:
+        """Write the beat's file atomically, then dump the flight ring."""
         tmp = f"{self.path}.tmp.{os.getpid()}"
         try:
             with open(tmp, "w") as f:
@@ -144,13 +182,12 @@ class Heartbeat:
             # (the watchdog) sees either the old or the new beat, never a
             # torn write.
             os.replace(tmp, self.path)
-            # Under the lock: _write runs on both the daemon thread and the
-            # training loop (update/stop), and update() reads this stamp to
-            # decide cadence (jaxlint JL301).
+            # Under the lock: _persist runs on both the daemon thread and
+            # the training loop (update/stop), and update() reads this stamp
+            # to decide cadence (jaxlint JL301).
             with self._lock:
                 self._last_write = time.monotonic()
             if self.flight is not None:
-                self.flight.record(payload)
                 self.flight.dump("heartbeat")
         except OSError:
             # A full disk must not kill training; staleness is the signal.

@@ -7,20 +7,25 @@ device the default raises instead of carrying on on the CPU.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 
-def resolve_device(platform: Optional[str] = None) -> torch.device:
+def resolve_device(platform: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None``/``"default"``/``"cuda"`` -> the CUDA device (an error when
-    there is none); ``"cpu"`` -> the CPU.
+    there is none); ``"cpu"`` -> the CPU; a ``torch.device`` as it is (a
+    CUDA one only where CUDA is available).
 
     Under a launcher that sets ``LOCAL_RANK`` (``torchrun``), the process
     takes card ``LOCAL_RANK`` and makes it the current device; a rank
     without a card of its own is an error, never a second tenant of
     another rank's card."""
+    if isinstance(platform, torch.device):
+        if platform.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device is available for {platform}")
+        return platform
     if platform == "cpu":
         return torch.device("cpu")
     if platform not in (None, "default", "cuda"):

@@ -11,6 +11,13 @@
                                            # one CLI run under deterministic
                                            # cuDNN (the durability phase's
                                            # child; results to out.pt)
+    python3 chip_smoke.py serve            # the serve phase (7) alone
+    python3 chip_smoke.py gaps [reps]      # the main path's task spans: their
+                                           # gaps, with the heartbeats and GC
+                                           # pauses inside them
+    python3 chip_smoke.py serve_child <export_dir> <out.json>
+                                           # the serve phase's fresh-process
+                                           # reload and server (its child)
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -167,10 +174,38 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``task_002_epoch_001.orbax`` and end bitwise equal to (a).
    Each leg's wall time, the payload bytes and the save and restore times
    are printed beside the card.
-7. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
+7. Serving.  (a) The main path's recipe at 1 epoch a task (6 tasks) with
+   ``--export_dir --serve_skew_check --serve_buckets 1,8,32,64``, the
+   kernels' counts zeroed just before the fit and read just after (one run
+   a step each): 6 ``serve_export`` and 6 ``serve_skew`` records (each
+   task's ``skew_abs_max`` printed; a nonzero one is a finding, not a
+   failure), the train group's ``recompile`` records as without export.
+   (b) In a fresh process (``serve_child``): every artifact reloaded on
+   the card, its probe replayed bitwise; per bucket the replayed graph's
+   device ms (CUDA events) against the loaded module run eagerly, the
+   host ms of ``predict_padded``, the capture ms and the program's bytes;
+   each artifact's load ms and bytes; its served logits of every seen
+   validation slice against the trainer's eval of the same weights (batch
+   128, the trainer's cuDNN settings): max |dlogit| and argmax
+   disagreements.  (c) In that process, one ``InferenceServer`` over a
+   staging directory with task 0 and ``swap_ioerror@task1`` armed: 8
+   closed-loop workers for 6 s, task 1 published 2 s in, then 100 req/s
+   open loop for 5 s, ``max_wait_ms`` 5: exactly one
+   ``serve_swap_failed`` before the swap to task 1, no failed request,
+   responses switching from task 0 to 1, ``trace_count() == 0``; p50 /
+   p95 / p99, throughput and bucket occupancy of each loop printed.
+   (d) Two replica subprocesses on card 0 under ``scripts/supervise.py``
+   behind the port's ``Frontend`` (``replica_die@task0`` on replica 0,
+   ``swap_ioerror@task1`` on replica 1), 4 clients: replica 0 dies at its
+   first request, is ejected, relaunched and readmitted; task 1 is then
+   published and the rollout refuses once on replica 1 and converges: no
+   failed client request, the breaker's eject and readmit, one
+   ``serve_rollback``, both replicas on task 1 with ``trace_count`` 0;
+   every process the phase started is stopped.
+8. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
    line, a ``{"durability": ...}`` line, a ``{"fused": ..., "main_path":
    ..., "herding": ...}`` line, a ``{"model_axis": ..., "mnist": ...}``
-   line, the card's name and power limit, a
+   line, a ``{"serve": ...}`` line, the card's name and power limit, a
    ``{"kernels": [...]}`` line, then the card line ``{"ok": true,
    "device": {...}}`` last.
 
@@ -259,6 +294,19 @@ FUSED_RUNS = {"fused": [], "per_step": ["--no_fused_epochs"],
               "fused_prefetch1": ["--prefetch_depth", "1"],
               "fused_telemetry": TELEMETRY_FLAGS}
 HERD_REPEATS = 20          # timed calls of each herding path
+# The serve phase: the main path's recipe at 1 epoch a task, exporting.
+SERVE_ARGV = [*RACE_ARGV, "--batch_size", "128", "--num_epochs", "1"]
+SERVE_BUCKETS = (1, 8, 32, 64)
+SERVE_MAX_WAIT_MS = 5.0    # the batcher's deadline
+SERVE_WORKERS = 8          # closed-loop clients (the JAX package's bench.py)
+SERVE_CLOSED_S = 6.0       # closed-loop traffic; task 1 is published 2 s in
+SERVE_AFTER_SWAP_S = 1.0   # closed-loop traffic kept up after the swap lands
+SERVE_OPEN_RPS = 100       # open-loop arrival rate
+SERVE_OPEN_S = 5.0
+SERVE_TIMED = 50           # replays (or eager runs) a timing
+SERVE_CHILD_S = 420        # the reload-and-serve child's time limit
+FLEET_FAULTS = ("replica_die@task0", "swap_ioerror@task1")  # replica i's clause
+FLEET_CLIENTS = 4
 SPAN_COVERAGE = 0.90       # the share of a task span its children must cover
 
 
@@ -844,7 +892,8 @@ def _check_telemetry(records, spans, nb_tasks: int, captures: int) -> dict:
             if sp["parent"] == t["span_id"]:
                 kids[sp["name"]] = kids.get(sp["name"], 0.0) + sp["dur_s"] / t["dur_s"]
         check(sum(kids.values()) >= SPAN_COVERAGE,
-              f"task {t['task']}'s children cover {100 * sum(kids.values()):.1f}% of it")
+              f"task {t['task']}'s children cover {100 * sum(kids.values()):.1f}% of its "
+              f"{t['dur_s']:.3f} s: " + ", ".join(f"{k} {100 * v:.1f}%" for k, v in kids.items()))
         shares.append(kids)
         task_s.append(t["dur_s"])
     return {"shares": shares, "task_s": task_s, "compiles": [r["compiles"] for r in events],
@@ -2377,6 +2426,582 @@ def phase_durability(torch):
             "gammas": gammas["chaos"]}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 7: serving
+# --------------------------------------------------------------------------- #
+
+
+def _events_ms(torch, fn, n=SERVE_TIMED) -> float:
+    """Device ms a call of ``fn``: ``n`` calls between two CUDA events,
+    after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _latency_summary(lat_ms, seconds, served, slots) -> dict:
+    import numpy as np
+
+    lat = np.asarray(lat_ms, np.float64)
+    return {"requests": int(lat.size), "seconds": seconds,
+            "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
+            "p99_ms": float(np.percentile(lat, 99)), "throughput_rps": lat.size / seconds,
+            "bucket_occupancy": served / slots if slots else 0.0}
+
+
+def _window(before: dict, after: dict):
+    """Served requests and bucket slots between two ``stats()``."""
+    slots = sum(int(b) * (n - before["bucket_counts"].get(b, 0))
+                for b, n in after["bucket_counts"].items())
+    return after["served"] - before["served"], slots
+
+
+def _serve_reload(torch, export_dir: str) -> list:
+    """(b) Every task's artifact reloaded in this fresh process: its probe
+    replays bitwise; per bucket the replayed graph's device ms against the
+    loaded module run eagerly, the capture ms, the program's bytes; and the
+    served logits of every seen validation slice against the trainer's eval
+    (the artifact's model at batch 128 under the trainer's cuDNN settings)."""
+    import numpy as np
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.config import (
+        config_from_args,
+        get_args_parser,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import build_scenario
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.augment import (
+        eval_preprocess,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving import (
+        exact_cuda_numerics,
+        load_artifact,
+        probe_artifact,
+        read_manifest,
+        rebuild_model,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.checkpoint import (
+        _read_payload,
+    )
+
+    scenario_val, _ = build_scenario(
+        config_from_args(get_args_parser().parse_args(SERVE_ARGV)), train=False)
+    man = read_manifest(export_dir)
+    out = []
+    for t in sorted(man["artifacts"], key=int):
+        path = os.path.join(export_dir, man["artifacts"][t]["path"])
+        art = load_artifact(path)
+        check(art.device.type == "cuda" and all(r.graph is not None for r in art.runners.values()),
+              f"task {t}: the artifact did not load as graphs on the card")
+        probe = probe_artifact(art)
+        check(probe["ok"] and probe["checked"],
+              f"task {t}: the probe did not replay bitwise in a fresh process: {probe}")
+        buckets = []
+        for b, r in sorted(art.runners.items()):
+            replay_ms = _events_ms(torch, r.graph.replay)
+            with torch.no_grad(), exact_cuda_numerics():
+                eager_ms = _events_ms(torch, lambda: r.module(r._x, r.num_active))
+            x = np.random.RandomState(b).randint(0, 256, r.shape).astype(np.uint8)
+            t0 = time.perf_counter()
+            for _ in range(SERVE_TIMED):
+                art.predict_padded(x, b)
+            buckets.append({"bucket": b, "replay_ms": replay_ms, "eager_ms": eager_ms,
+                            "predict_host_ms": 1e3 * (time.perf_counter() - t0) / SERVE_TIMED,
+                            "capture_ms": 1e3 * r.capture_s,
+                            "bytes": os.path.getsize(os.path.join(
+                                path, art.meta["files"]["exported"][str(b)]))})
+        # The trainer's eval of the same weights: batch 128, its cuDNN.
+        seen = [scenario_val[j] for j in range(len(scenario_val.increments()))]
+        cum, xs = 0, []
+        for task, inc in zip(seen, scenario_val.increments()):
+            if cum + inc > art.known:
+                break
+            cum += inc
+            xs.append(task.x)
+        x = np.concatenate(xs)
+        served = art.predict(x)
+        model, aug_cfg = rebuild_model(art.meta)
+        payload, why = _read_payload(os.path.join(path, "weights.pkl"))
+        check(payload is not None, f"task {t}: {why}")
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               {**payload["params"], **payload["batch_stats"]}.items()})
+        model.cuda()
+        na = torch.tensor(art.known, dtype=torch.int32, device="cuda")
+        evals = []
+        with torch.no_grad():
+            for lo in range(0, len(x), 128):
+                xb = torch.from_numpy(x[lo:lo + 128]).cuda()
+                evals.append(model(eval_preprocess(xb, aug_cfg), na, train=False)[0].cpu())
+        trained = torch.cat(evals).numpy()
+        k = art.known
+        out.append({"task": int(t), "known": k, "load_ms": art.load_ms,
+                    "compile_ms": art.compile_ms, "probe": probe,
+                    "artifact_bytes": sum(os.path.getsize(os.path.join(path, f))
+                                          for f in os.listdir(path)),
+                    "buckets": buckets, "eval_images": int(len(x)),
+                    "logits_max_abs_vs_train_eval": float(np.max(np.abs(
+                        served[:, :k].astype(np.float64) - trained[:, :k]))),
+                    "argmax_disagreements": int(np.sum(
+                        served[:, :k].argmax(-1) != trained[:, :k].argmax(-1)))})
+        del art, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_traffic(torch, export_dir: str, tmp: str) -> dict:
+    """(c) One ``InferenceServer`` on the card over a staging directory with
+    task 0 and ``swap_ioerror@task1`` armed: closed-loop traffic
+    (``SERVE_WORKERS``) with task 1 published 2 s in and kept up at least
+    ``SERVE_AFTER_SWAP_S`` after the swap lands, then open-loop traffic at
+    ``SERVE_OPEN_RPS``."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving import (
+        InferenceServer,
+        register_artifact,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.logging import (
+        JsonlLogger,
+    )
+    from faults.injector import FaultInjector, parse_fault_spec
+
+    stage = os.path.join(tmp, "stage")
+    os.makedirs(stage)
+    shutil.copytree(os.path.join(export_dir, "task_000"), os.path.join(stage, "task_000"))
+    register_artifact(stage, 0, {"path": "task_000"})
+    log = os.path.join(tmp, "serve.jsonl")
+    sink = JsonlLogger(log)
+    inj = FaultInjector(parse_fault_spec("swap_ioerror@task1"),
+                        ledger_path=os.path.join(tmp, "ledger.jsonl"), sink=sink)
+    images = np.random.RandomState(0).randint(0, 256, (256, 32, 32, 3)).astype(np.uint8)
+    server = InferenceServer(stage, max_wait_ms=SERVE_MAX_WAIT_MS, poll_s=0.05, sink=sink,
+                             faults=inj).start()
+    closed, errors, lock = [], [], threading.Lock()
+    stop = threading.Event()
+
+    def worker(k):
+        i = k
+        while not stop.is_set():
+            try:
+                res = server.submit(images[i % len(images)]).result(timeout=60)
+            except Exception as e:  # noqa: BLE001 — checked empty below
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                closed.append((res["task_id"], res["latency_ms"]))
+            i += SERVE_WORKERS
+
+    try:
+        s0 = server.stats()
+        workers = [threading.Thread(target=worker, args=(k,)) for k in range(SERVE_WORKERS)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        time.sleep(2.0)
+        shutil.copytree(os.path.join(export_dir, "task_001"), os.path.join(stage, "task_001"))
+        register_artifact(stage, 1, {"path": "task_001"})
+        t_pub = time.perf_counter()
+        while time.perf_counter() - t_pub < 60 and server.task_id != 1:
+            time.sleep(0.01)
+        swap_s = time.perf_counter() - t_pub
+        # however long the swap's load took, task 1 must answer closed-loop requests
+        time.sleep(max(SERVE_AFTER_SWAP_S, SERVE_CLOSED_S - (time.perf_counter() - t0)))
+        stop.set()
+        for w in workers:
+            w.join(timeout=60)
+        closed_s = time.perf_counter() - t0
+        s1 = server.stats()
+        futs = []
+        t0 = time.perf_counter()
+        for i in range(int(SERVE_OPEN_RPS * SERVE_OPEN_S)):
+            time.sleep(max(0.0, t0 + i / SERVE_OPEN_RPS - time.perf_counter()))
+            futs.append(server.submit(images[i % len(images)]))
+        opened = []
+        for f in futs:
+            try:
+                res = f.result(timeout=60)
+                opened.append((res["task_id"], res["latency_ms"]))
+            except Exception as e:  # noqa: BLE001 — checked empty below
+                errors.append(repr(e))
+        open_s = time.perf_counter() - t0
+        s2 = server.stats()
+    finally:
+        stop.set()
+        server.stop()
+    traces = server.trace_count()
+    records = [json.loads(ln) for ln in open(log) if ln.strip()]
+    kinds = [r["type"] for r in records]
+    swaps = [r for r in records if r["type"] == "serve_swap"]
+    swap_trail = [(r["type"], r.get("to_task", r.get("task_id"))) for r in records
+                  if r["type"].startswith("serve_swap")]
+    check(not errors and s2["failed"] == 0, f"serve: {len(errors)} failed requests: {errors[:3]}")
+    check(kinds.count("serve_swap_failed") == 1 and [w["to_task"] for w in swaps] == [0, 1]
+          and kinds.index("serve_swap_failed") < kinds.index("serve_swap", 1),
+          f"serve: swap records {swap_trail}")
+    tasks = [t for t, _ in closed]
+    check(tasks[0] == 0 and tasks[-1] == 1 and sorted(set(tasks)) == [0, 1]
+          and all(t == 1 for t, _ in opened),
+          f"serve: responses did not switch task 0 -> 1 ({sorted(set(tasks))}, open loop "
+          f"{sorted({t for t, _ in opened})})")
+    check(traces == 0, f"serve: {traces} programs made after load")
+    return {"closed_loop": {**_latency_summary([m for _, m in closed], closed_s,
+                                               *_window(s0, s1)), "workers": SERVE_WORKERS},
+            "open_loop": {**_latency_summary([m for _, m in opened], open_s, *_window(s1, s2)),
+                          "rps": SERVE_OPEN_RPS},
+            "bucket_counts": s2["bucket_counts"], "swap_s": swap_s,
+            "swap_record": swaps[1], "swap_failed": kinds.count("serve_swap_failed"),
+            "trace_count": traces, "max_wait_ms": SERVE_MAX_WAIT_MS}
+
+
+def serve_child(export_dir: str, out: str) -> int:
+    """``serve_child``: the serve phase's (b) and (c) in a fresh process;
+    results to ``out``."""
+    import torch
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.platform import (
+        use_full_f32,
+    )
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 2
+    use_full_f32()  # the trainer's TF32 switches, for its eval side
+    with tempfile.TemporaryDirectory() as tmp:
+        reload = _serve_reload(torch, export_dir)
+        traffic = _serve_traffic(torch, export_dir, tmp)
+    with open(out, "w") as f:
+        json.dump({"reload": reload, "traffic": traffic}, f)
+    return 0
+
+
+def _get_json(port: int, path: str, timeout: float = 5.0):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _serve_fleet(export_dir: str, tmp: str) -> dict:
+    """(d) Two supervised replica subprocesses on card 0 behind the port's
+    ``Frontend``: replica 0 dies at its first request (``replica_die``),
+    is ejected, relaunched and readmitted; then task 1 is published and the
+    rollout refuses once on replica 1 (``swap_ioerror``) and converges."""
+    import http.client
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving import (
+        Frontend,
+        register_artifact,
+        stop_supervised_replica,
+        supervised_replica_cmd,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving.replica import (
+        encode_image,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.logging import (
+        JsonlLogger,
+    )
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    serve_dir, tdir = os.path.join(tmp, "fleet_serve"), os.path.join(tmp, "fleet_tel")
+    os.makedirs(serve_dir)
+    shutil.copytree(os.path.join(export_dir, "task_000"), os.path.join(serve_dir, "task_000"))
+    register_artifact(serve_dir, 0, {"path": "task_000"})
+    ports = [_free_port() for _ in FLEET_FAULTS]
+    procs, consoles, fe = [], [], None
+    results, failures, lock = [], [], threading.Lock()
+    stop = threading.Event()
+    body = encode_image(np.random.RandomState(1).randint(0, 256, (32, 32, 3)).astype(np.uint8))
+    timeline = {}
+
+    def client():
+        while not stop.is_set():
+            conn = http.client.HTTPConnection("127.0.0.1", fe.port, timeout=60.0)
+            try:
+                conn.request("POST", "/predict", body=body, headers={
+                    "Content-Type": "application/octet-stream", "X-Deadline-Ms": "30000"})
+                resp = conn.getresponse()
+                payload = resp.read()
+                with lock:
+                    if resp.status == 200:
+                        results.append(int(resp.getheader("X-Task-Id")))
+                    else:
+                        failures.append((resp.status, payload[:120]))
+            except Exception as e:  # noqa: BLE001 — checked empty below
+                with lock:
+                    failures.append(("exc", repr(e)))
+            finally:
+                conn.close()
+
+    def wait_for(cond, seconds, what):
+        deadline = time.perf_counter() + seconds
+        while time.perf_counter() < deadline:
+            if cond():
+                return
+            time.sleep(0.2)
+        raise SmokeFailure(f"fleet: {what} within {seconds} s")
+
+    def healthz(i):
+        try:
+            return _get_json(ports[i], "/healthz")[1]
+        except (OSError, ValueError):
+            return {}
+
+    t0 = time.perf_counter()
+    clients = []
+    try:
+        for i, spec in enumerate(FLEET_FAULTS):
+            os.makedirs(os.path.join(tdir, f"replica_{i}"), exist_ok=True)
+            consoles.append(open(os.path.join(tdir, f"replica_{i}", "console.log"), "wb"))
+            procs.append(subprocess.Popen(
+                supervised_replica_cmd(repo, serve_dir, i, ports[i], tdir, fault_spec=spec,
+                                       platform="cuda"),
+                cwd=repo, start_new_session=True, stdout=consoles[-1],
+                stderr=subprocess.STDOUT))
+        wait_for(lambda: all(healthz(i).get("warm") for i in range(len(ports))), 240,
+                 "the replicas did not warm up")
+        timeline["warm_s"] = time.perf_counter() - t0
+        first_pid = healthz(0)["pid"]
+        fe_log = os.path.join(tmp, "frontend.jsonl")
+        fe = Frontend([("127.0.0.1", p) for p in ports], capacity=64,
+                      default_deadline_ms=30000.0, max_attempts=6, retry_backoff_s=0.02,
+                      error_threshold=2, probe_s=0.5, export_dir=serve_dir,
+                      rollout_poll_s=1.0, sink=JsonlLogger(fe_log)).start()
+        clients = [threading.Thread(target=client) for _ in range(FLEET_CLIENTS)]
+        for c in clients:
+            c.start()
+        t1 = time.perf_counter()
+        wait_for(lambda: 0 in fe.health.ejected(), 60, "replica 0 was not ejected")
+        timeline["eject_s"] = time.perf_counter() - t1
+        wait_for(lambda: fe.health.is_healthy(0), 240, "replica 0 was not readmitted")
+        timeline["readmit_s"] = time.perf_counter() - t1
+        shutil.copytree(os.path.join(export_dir, "task_001"),
+                        os.path.join(serve_dir, "task_001"))
+        register_artifact(serve_dir, 1, {"path": "task_001"})
+        t2 = time.perf_counter()
+        wait_for(lambda: all(healthz(i).get("task_id") == 1 for i in range(len(ports))), 180,
+                 "the fleet did not converge on task 1")
+        timeline["converge_s"] = time.perf_counter() - t2
+        time.sleep(1.0)
+        stop.set()
+        for c in clients:
+            c.join(timeout=90)
+        stats = [_get_json(p, "/stats")[1] for p in ports]
+        relaunched_pid = healthz(0).get("pid")
+        fe_stats = fe.stats()
+    finally:
+        stop.set()
+        for c in clients:
+            c.join(timeout=90)
+        if fe is not None:
+            fe.stop()
+        for i, proc in enumerate(procs):
+            stop_supervised_replica(proc, tdir, i)
+        for console in consoles:
+            console.close()
+    fe_records = [json.loads(ln) for ln in open(fe_log) if ln.strip()]
+    ejected = [(r["replica"], r["event"]) for r in fe_records if r["type"] == "replica_ejected"]
+    rollbacks = [r for r in fe_records if r["type"] == "serve_rollback"]
+    check(not failures, f"fleet: {len(failures)} failed client requests: {failures[:3]}")
+    check(ejected == [(0, "eject"), (0, "readmit")], f"fleet: breaker events {ejected}")
+    check(len(rollbacks) == 1 and rollbacks[0]["replica"] == 1 and rollbacks[0]["task_id"] == 1,
+          f"fleet: rollbacks {rollbacks}")
+    check(relaunched_pid != first_pid, "fleet: replica 0 was never relaunched")
+    check(all(st["task_id"] == 1 and st["trace_count"] == 0 for st in stats),
+          f"fleet: replicas ended on {[(st['task_id'], st['trace_count']) for st in stats]}")
+    check(sorted(set(results)) == [0, 1] and results[-1] == 1,
+          f"fleet: responses came from tasks {sorted(set(results))}")
+    replica_rollbacks = [sum(json.loads(ln)["type"] == "serve_rollback" for ln in open(
+        os.path.join(tdir, f"replica_{i}", "run.jsonl")) if ln.strip()) for i in range(len(ports))]
+    check(replica_rollbacks == [0, 1], f"fleet: replicas' own serve_rollback {replica_rollbacks}")
+    return {"replicas": len(ports), "faults": list(FLEET_FAULTS), "requests": len(results),
+            "retries": fe_stats["retries"], "latency_ms": fe_stats["latency_ms"]["high"],
+            "rollout_swaps": fe_stats["rollout_swaps"], "breaker": ejected,
+            "trace_counts": [st["trace_count"] for st in stats], "timeline_s": timeline}
+
+
+def gaps(reps: int) -> int:
+    """``gaps [reps]``: the main path's recipe with its telemetry (2 epochs
+    a task), ``reps`` times; for tasks 2-5 the child spans' coverage and
+    every gap between them over 3 ms, with the forced heartbeats and the
+    GC pauses inside it (the evidence behind the span gate's margin)."""
+    import gc
+
+    import torch
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 2
+    pauses, started = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        else:
+            pauses.append((time.time(), 1e3 * (time.perf_counter() - started["t"])))
+
+    gc.callbacks.append(on_gc)
+    for rep in range(reps):
+        with tempfile.TemporaryDirectory() as tmp:
+            tel = os.path.join(tmp, "tel")
+            trainer = build_trainer([
+                *RACE_ARGV, "--batch_size", "128", "--num_epochs", "2",
+                "--log_file", os.path.join(tmp, "log.jsonl"), "--telemetry_dir", tel,
+                "--heartbeat_path", os.path.join(tmp, "hb", "heartbeat.json"),
+                "--recompile_budget"])
+            beats, update = [], trainer.telemetry.heartbeat.update
+
+            def timed(force=False, _update=update, **state):
+                t0 = time.perf_counter()
+                _update(force=force, **state)
+                if force:
+                    beats.append((time.time(), 1e3 * (time.perf_counter() - t0)))
+
+            trainer.telemetry.heartbeat.update = timed
+            pauses.clear()
+            trainer.fit()
+            spans = [json.loads(ln) for ln in open(os.path.join(tel, "spans.jsonl"))]
+        for t in [sp for sp in spans if sp["name"] == "task"][2:]:
+            kids = sorted((sp for sp in spans if sp["parent"] == t["span_id"]),
+                          key=lambda sp: sp["ts"])
+            cur, found = t["ts"], []
+            for k in kids + [{"name": "end", "ts": t["ts"] + t["dur_s"], "dur_s": 0.0}]:
+                if k["ts"] - cur > 0.003:
+                    inside = lambda xs: [round(ms, 2) for ts, ms in xs  # noqa: E731
+                                         if cur <= ts <= k["ts"] + 0.001 and ms > 0.5]
+                    found.append(f"before {k['name']} {1e3 * (k['ts'] - cur):.1f} ms "
+                                 f"(beats {inside(beats)}, gc {inside(pauses)})")
+                cur = k["ts"] + k["dur_s"]
+            cover = sum(k["dur_s"] for k in kids) / t["dur_s"]
+            print(f"[gaps] run {rep} task {t['task']}: {1e3 * t['dur_s']:.0f} ms, children "
+                  f"cover {100 * cover:.1f}%; " + "; ".join(found))
+    return 0
+
+
+def serve_only(torch) -> int:
+    """``serve``: the serve phase alone (the kernels build on first use)."""
+    global CARD
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 2
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.platform import (
+        use_full_f32,
+    )
+
+    use_full_f32()
+    CARD = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    try:
+        serve = phase_serve(torch)
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"serve": serve, "card": CARD}))
+    return 0
+
+
+def phase_serve(torch):
+    """(a) The main path's recipe at 1 epoch a task with ``--export_dir
+    --serve_skew_check``: 6 artifacts, 6 skew records; (b) and (c) in a fresh
+    process (``serve_child``); (d) the fleet."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        export_dir, log = os.path.join(tmp, "export"), os.path.join(tmp, "serve_train.jsonl")
+        trainer = build_trainer([*SERVE_ARGV, "--log_file", log, "--export_dir", export_dir,
+                                 "--serve_skew_check", "--serve_buckets",
+                                 ",".join(map(str, SERVE_BUCKETS))])
+        torch.cuda.synchronize()
+        fl.reset_launches()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _counts(fl)
+        steps, captures = trainer.global_step, trainer.epoch_fn.captures
+        del trainer
+        torch.cuda.empty_cache()
+        _check_counts("serve phase (a)", counts, steps, captures)
+        records = [json.loads(ln) for ln in open(log)]
+        exports = [r for r in records if r["type"] == "serve_export"]
+        skews = [r for r in records if r["type"] == "serve_skew"]
+        check([r["task_id"] for r in exports] == list(range(6))
+              and all("error" not in r for r in exports),
+              f"serve: export records {exports}")
+        check([r["task_id"] for r in skews] == list(range(6)), f"serve: skew records {skews}")
+        recompiles = [r for r in records if r["type"].startswith("recompile")]
+        check(len(recompiles) == captures and all(
+            r["type"] == "recompile" and r["group"] == "train" and r["expected"]
+            for r in recompiles), f"serve: the exports moved the train group: {recompiles}")
+        for r, s in zip(exports, skews):
+            print(f"[serve] task {r['task_id']}: exported {len(SERVE_BUCKETS)} buckets in "
+                  f"{r['seconds']} s; skew_abs_max {s['skew_abs_max']} (served "
+                  f"{s['served_acc_per_task']}, trained {s['train_acc_per_task']}) [{CARD}]")
+        out = os.path.join(tmp, "serve_child.json")
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "serve_child",
+                               export_dir, out], capture_output=True, text=True,
+                              timeout=SERVE_CHILD_S)
+        child_s = time.perf_counter() - t1
+        check(proc.returncode == 0, f"serve child exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        child = json.load(open(out))
+        t2 = time.perf_counter()
+        fleet = _serve_fleet(export_dir, tmp)
+        fleet_s = time.perf_counter() - t2
+    for a in child["reload"]:
+        print(f"[serve] reload task {a['task']}: load {a['load_ms']:.1f} ms (captures "
+              f"{a['compile_ms']:.1f} ms), {a['artifact_bytes']} bytes, probe bitwise; served "
+              f"vs trained eval over {a['eval_images']} images: max |dlogit| "
+              f"{a['logits_max_abs_vs_train_eval']:.3g}, {a['argmax_disagreements']} argmax "
+              f"disagreements [{CARD}]")
+        for b in a["buckets"]:
+            print(f"[serve]   bucket {b['bucket']}: replay {b['replay_ms']:.4f} ms, eager "
+                  f"{b['eager_ms']:.4f} ms (device), predict_padded {b['predict_host_ms']:.4f} "
+                  f"ms (host), capture {b['capture_ms']:.1f} ms, {b['bytes']} bytes")
+    tr = child["traffic"]
+    for name in ("closed_loop", "open_loop"):
+        t = tr[name]
+        print(f"[serve] {name}: {t['requests']} requests in {t['seconds']:.2f} s, "
+              f"{t['throughput_rps']:.1f} req/s, p50 {t['p50_ms']:.3f} / p95 {t['p95_ms']:.3f} "
+              f"/ p99 {t['p99_ms']:.3f} ms, bucket occupancy {t['bucket_occupancy']:.3f} "
+              f"[{CARD}]")
+    print(f"[serve] hot swap under traffic: 1 injected failure, swapped to task 1 "
+          f"{tr['swap_s']:.2f} s after publication (load {tr['swap_record']['load_ms']} ms, "
+          f"capture {tr['swap_record']['compile_ms']} ms), no failed request, "
+          f"trace_count {tr['trace_count']}; buckets {tr['bucket_counts']}")
+    print(f"[serve] fleet: {fleet['requests']} requests, 0 failed, {fleet['retries']} retries, "
+          f"breaker {fleet['breaker']}, 1 rollback, trace counts {fleet['trace_counts']}, "
+          f"timeline {json.dumps(fleet['timeline_s'])} ({fleet_s:.1f} s) [{CARD}]")
+    return {"fit_s": fit_s, "steps": steps, "launches": counts["ran"],
+            "exports": [{k: r[k] for k in ("task_id", "seconds", "known")} for r in exports],
+            "skew_abs_max": [s["skew_abs_max"] for s in skews], "child_s": child_s,
+            "reload": child["reload"], "traffic": tr, "fleet": fleet, "fleet_s": fleet_s,
+            "acc1s": result["acc1s"]}
+
+
 def launch_cli(argv) -> int:
     """``launch2``: the CLI at ``DP_RANKS`` ranks (``--mesh_data 2``, or
     ``--mesh_data 1 --mesh_model 2`` for the model axis)."""
@@ -2468,6 +3093,12 @@ def main() -> int:
         return race(sys.argv[2], sys.argv[3:])
     if len(sys.argv) > 2 and sys.argv[1] == "durable":
         return durable_child(sys.argv[2], sys.argv[3:])
+    if len(sys.argv) > 3 and sys.argv[1] == "serve_child":
+        return serve_child(sys.argv[2], sys.argv[3])
+    if len(sys.argv) > 1 and sys.argv[1] == "serve":
+        return serve_only(torch)
+    if len(sys.argv) > 1 and sys.argv[1] == "gaps":
+        return gaps(int(sys.argv[2]) if len(sys.argv) > 2 else 2)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
@@ -2487,6 +3118,7 @@ def main() -> int:
         model_axis = phase_model_axis(torch)
         mnist = phase_mnist(torch)
         durability = phase_durability(torch)
+        serve = phase_serve(torch)
     except (SmokeFailure, ImportError) as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -2554,6 +3186,7 @@ def main() -> int:
     print(json.dumps({"model_axis": model_axis, "mnist": mnist,
                       "kernel_widths": sorted({w for _, w, _ in GRID + NEW_WIDTHS}),
                       "width_timing": widths, "card": smi}))
+    print(json.dumps({"serve": serve, "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -314,8 +314,21 @@ def test_draws_follow_the_config():
                                    ["--reprob", "0.25", "--remode", "const", "--recount", "2"],
                                    ["--aa", "none"], ["--ra_interpolation", "random"]])
 def test_check_supported_accepts_the_parsers_augmentation_and_presets(flags):
+    """The parser's augmentation flags and precision presets make a config,
+    its ``AugmentConfig`` and its policy (no slice check stands in the way
+    since the port runs every flag)."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops.precision import (
+        policy_from_config,
+    )
+
     args = tcfg.get_args_parser().parse_args(["--data_set", "synthetic10", *flags])
-    tcfg.check_supported(tcfg.config_from_args(args))
+    cfg = tcfg.config_from_args(args)
+    aug = taug.AugmentConfig.from_config(cfg)
+    assert aug.rand_augment == (cfg.aa is not None)
+    assert (aug.reprob, aug.remode, aug.recount) == (cfg.reprob, cfg.remode, cfg.recount)
+    assert aug.ra_interpolation == cfg.ra_interpolation
+    alias = {"float32": "f32", "bfloat16": "bf16_all"}[cfg.compute_dtype]
+    assert policy_from_config(cfg).name == (cfg.precision or alias)
 
 
 @pytest.mark.parametrize("aa", ["augmix-m5-w4", "rand-m9-inc0"])

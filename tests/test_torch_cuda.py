@@ -3,7 +3,9 @@ their plain versions, the forward's in-kernel batch reduction, a train
 step through the kernels against the same step through the plain loss, the
 augmentation on the card against the same functions on the CPU, one
 step under each precision preset, the graphed fused epoch against eager
-steps, and the prefetcher's side stream.  They skip without a card.  This file imports no JAX, so it also runs where
+steps, the prefetcher's side stream, and a serving artifact's captured
+graphs (bitwise its eager model; a capture in one thread while another
+replays).  They skip without a card.  This file imports no JAX, so it also runs where
 JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -265,3 +267,79 @@ def test_prefetcher_copies_on_a_side_stream(cuda):
     assert not pf.alive and len(got) == len(host)
     assert all(np.array_equal(a, c) and np.array_equal(b, d) for (a, b), (c, d) in zip(got, host))
     assert streams and torch.cuda.current_stream(cuda).cuda_stream not in streams
+
+
+def _serving_artifact(tmp_path, task_id, known, seed):
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.augment import (
+        AugmentConfig,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import (
+        create_model,
+        grow,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving import (
+        export_artifact,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.checkpoint import (
+        _model_state,
+    )
+
+    model = create_model("resnet20", 10, seed=seed)
+    grow(model, torch.Generator().manual_seed(seed), 0, known)
+    state = _model_state(model)
+    return export_artifact(
+        str(tmp_path), task_id, AugmentConfig(), state["params"], state["batch_stats"],
+        known=known, class_order=list(range(10)), input_size=32, channels=3, buckets=(1, 8),
+        device="cuda", model_meta={"backbone": "resnet20", "width": 10, "precision": "f32",
+                                   "bn_group_size": 0})
+
+
+def test_serving_artifact_replays_its_eager_model_bitwise(cuda, tmp_path):
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving import (
+        direct_predict,
+        load_artifact,
+        probe_artifact,
+    )
+
+    path = _serving_artifact(tmp_path, 0, 5, 0)
+    art = load_artifact(path)
+    assert art.device.type == "cuda" and all(r.graph is not None for r in art.runners.values())
+    assert probe_artifact(art) == {"ok": True, "checked": True, "max_abs": 0.0}
+    x = np.random.RandomState(0).randint(0, 256, (8, 32, 32, 3)).astype(np.uint8)
+    np.testing.assert_array_equal(art.predict_padded(x, 8), direct_predict(path, x))
+    assert art.runners[8].programs._cache_size() == 0
+
+
+def test_serving_capture_while_another_thread_replays(cuda, tmp_path):
+    """A hot swap's load captures its graphs while the batcher replays the
+    old artifact: thread-local capture lets both run, and neither changes
+    the other's logits."""
+    import threading
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving import (
+        load_artifact,
+    )
+
+    old = load_artifact(_serving_artifact(tmp_path / "a", 0, 5, 0))
+    new_path = _serving_artifact(tmp_path / "b", 1, 10, 1)
+    x = np.random.RandomState(1).randint(0, 256, (8, 32, 32, 3)).astype(np.uint8)
+    want = old.predict_padded(x, 8)
+    stop, got, errors = threading.Event(), [], []
+
+    def replay():
+        while not stop.is_set():
+            try:
+                got.append(old.predict_padded(x, 8))
+            except Exception as e:  # noqa: BLE001 — asserted empty below
+                errors.append(repr(e))
+
+    t = threading.Thread(target=replay)
+    t.start()
+    try:
+        new = [load_artifact(new_path) for _ in range(3)]
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors and got
+    assert all(np.array_equal(g, want) for g in got)
+    assert all(np.array_equal(a.predict_padded(x, 8), new[0].predict_padded(x, 8)) for a in new)

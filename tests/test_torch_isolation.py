@@ -74,6 +74,26 @@ def test_default_platform_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         build_trainer(["--data_set", "synthetic10", "--aa", "none", "--color_jitter", "0"])
 
+    # The serving entry points: the server and the replica load their
+    # artifacts on the card unless --platform cpu is given.
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving import (
+        replica,
+        server,
+    )
+
+    for argv in (["--export_dir", "nowhere"], ["--export_dir", "nowhere", "--platform", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            server.main(argv)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            replica.main([*argv, "--replica_id", "0", "--port", "0"])
+    # With --platform cpu they get past the device and stop at the empty
+    # export dir instead.
+    with pytest.raises(FileNotFoundError, match="no artifact published"):
+        server.main(["--export_dir", "nowhere", "--platform", "cpu"])
+    with pytest.raises(FileNotFoundError, match="no artifact published"):
+        replica.main(["--export_dir", "nowhere", "--platform", "cpu", "--replica_id", "0",
+                      "--port", "0"])
+
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
     if torch.cuda.is_available():

@@ -119,6 +119,45 @@ def test_heartbeat_matches_jax(tmp_path, process_index):
     assert t["missing"] == {"fresh": False}
 
 
+def test_forced_beat_is_written_by_the_heartbeat_thread(tmp_path):
+    """With the heartbeat thread running, a forced beat enters the flight
+    ring at once, in the loop's order, and its file and flight dump are
+    written by the thread: the loop does not wait on the disk."""
+    import threading
+    import time
+
+    rec = ttel.FlightRecorder(str(tmp_path / "flight_0.json"), capacity=8, process_index=0,
+                              process_count=1, host_id="h")
+    hb = ttel.Heartbeat(str(tmp_path / "heartbeat.json"), interval_s=100.0, process_index=0,
+                        process_count=1, flight=rec)
+    writers = []
+    persist = hb._persist
+
+    def tracked(payload):
+        writers.append(threading.current_thread().name)
+        persist(payload)
+
+    hb._persist = tracked
+    hb.start()
+    try:
+        for i in range(20):
+            hb.update(force=True, task=i, phase="eval")
+            rec.record({"type": "epoch", "task_id": i})
+        ring = [e for e in rec._events if e["type"] in ("heartbeat", "epoch")]
+        assert [(e["type"], e.get("task", e.get("task_id"))) for e in ring[-8:]] == [
+            (t, i) for i in range(16, 20) for t in ("heartbeat", "epoch")]
+        deadline = time.time() + 10
+        while time.time() < deadline and json.load(open(hb.path)).get("task") != 19:
+            time.sleep(0.01)
+        assert json.load(open(hb.path))["task"] == 19
+        assert writers and set(writers) == {"cil-heartbeat"}
+    finally:
+        hb.stop()
+    beat = json.load(open(hb.path))
+    assert beat["task"] == 19 and beat["seq"] == 22  # init, 20 forced, the final one
+    assert not hb._thread
+
+
 def test_flight_recorder_and_sink_match_jax(tmp_path):
     def run(pkg, d):
         rec = pkg.FlightRecorder(str(d / "flight_0.json"), capacity=4, process_index=0,

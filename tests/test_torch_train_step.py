@@ -239,15 +239,20 @@ def test_cli_on_cpu_writes_the_record_sequence(tmp_path):
     assert meta["data_set"] == "synthetic10"
 
 
-@pytest.mark.parametrize("flags", [
-    ["--aa", "none", "--color_jitter", "0", "--fault_spec", "replica_die@task0"],
-    ["--aa", "none", "--color_jitter", "0", "--fault_spec", "kill@task1,swap_ioerror@task1"],
-    ["--aa", "none", "--color_jitter", "0", "--export_dir", "exp"],
-    ["--aa", "none", "--color_jitter", "0", "--serve_skew_check"],
+@pytest.mark.parametrize("flags, fields", [
+    (["--fault_spec", "replica_die@task0"], {"fault_spec": "replica_die@task0"}),
+    (["--fault_spec", "kill@task1,swap_ioerror@task1"],
+     {"fault_spec": "kill@task1,swap_ioerror@task1"}),
+    (["--export_dir", "exp"], {"export_dir": "exp", "serve_buckets": (1, 8, 32, 64)}),
+    (["--serve_skew_check", "--serve_buckets", "4,1"],
+     {"serve_skew_check": True, "serve_buckets": (1, 4)}),
 ])
-def test_flags_outside_the_slice_raise(flags):
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_trainer(["--platform", "cpu", "--data_set", "synthetic10", *flags])
+def test_serving_flags_build_the_trainer(flags, fields):
+    """The serving flags and the ``serve.*`` fault clauses, which an earlier
+    slice refused, build the trainer and reach its config."""
+    trainer = build_trainer(["--platform", "cpu", *CLI_ARGV, *flags])
+    for name, value in fields.items():
+        assert getattr(trainer.config, name) == value, name
 
 
 @pytest.mark.parametrize("flags", [
@@ -262,10 +267,12 @@ def test_flags_outside_the_slice_raise(flags):
 ])
 def test_telemetry_and_lockstep_flags_are_in_the_slice(flags):
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.config import (
-        check_supported,
         config_from_args,
         get_args_parser,
     )
 
     args = get_args_parser().parse_args(["--data_set", "synthetic10", *flags])
-    check_supported(config_from_args(args))
+    cfg = config_from_args(args)
+    name = flags[-2 if len(flags) > 1 and not flags[-1].startswith("--") else -1]
+    field = name.lstrip("-")
+    assert getattr(cfg, field) == (flags[-1] if name != flags[-1] else True)
