@@ -3,9 +3,11 @@
 The same index streams as the JAX package's ``data/loader.py``: train epochs
 wrap-pad a seeded permutation to whole batches, eval pads the tail batch with
 zero-weight rows, and the herding pass is an unshuffled wrap-padded sweep.
-Batches are uint8, assembled by the native row gather where it applies
-(``utils/native.py`` ``gather_rows``, bitwise numpy's ``src[idx]``);
-augmentation runs on the device (``data/augment.py``).
+Pixel batches are uint8, assembled by the native row gather where it
+applies (``utils/native.py`` ``gather_rows``, bitwise numpy's
+``src[idx]``); a lazy dataset's batches are its paths (numpy indexing),
+which the trainer decodes (``datasets.maybe_decode``); augmentation runs
+on the device (``data/augment.py``).
 """
 
 from __future__ import annotations

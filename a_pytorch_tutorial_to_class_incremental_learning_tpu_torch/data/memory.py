@@ -8,7 +8,8 @@ exemplars of all classes in class order.  The barycenter greedy runs in
 C++ (``csrc/cil_host.cpp`` through ``utils/native.py``) when the library
 loads and the memory prefers it, else in numpy with the same arithmetic.
 The greedy is a few thousand feature vectors once per task, so it stays on
-the host.
+the host.  The exemplars are whatever the dataset's ``x`` holds: pixels,
+or file paths for a lazy image-folder dataset (as in JAX).
 """
 
 from __future__ import annotations

@@ -27,6 +27,10 @@ consumer makes its current stream wait on that event and calls
 does not reuse their memory while the consumer's stream still reads it.
 No compute runs on the side stream: only copies.
 
+The trainer's ``place`` callbacks also decode a lazy image-folder batch
+(``datasets.maybe_decode``), so at ``depth > 0`` the decode runs on the
+producer thread too, overlapped with the steps.
+
 With a ``clock`` (a :class:`~..telemetry.StallClock`), only the time the
 consumer blocks on the ring is charged to its host bucket; at depth 0
 (no thread) the whole production is.  :meth:`DevicePrefetcher.stats` gives

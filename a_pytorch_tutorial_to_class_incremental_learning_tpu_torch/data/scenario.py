@@ -18,7 +18,9 @@ from ..config import compute_increments
 
 @dataclass
 class TaskSet:
-    """One task's data: ``(x uint8 [N,H,W,C], y int64 remapped, t int64)``."""
+    """One task's data: ``(x, y int64 remapped, t int64)``; ``x`` is uint8
+    ``[N,H,W,C]`` pixels, or file paths (object ``[N]``) for a lazy
+    image-folder dataset, whose exemplars are paths too."""
 
     x: np.ndarray
     y: np.ndarray

@@ -117,6 +117,17 @@ MNIST and the 1-channel backbones (``--data_set mnist|synthetic_mnist``,
 the backbone's name, and a channel or size mismatch with the data, or
 RandAugment on one channel, raises at construction (JAX
 ``engine/loop.py:243-277``).
+
+The image-folder dataset (``--data_set imagenet1000``, JAX
+``engine/loop.py:249-270``): its ``x`` is an object array of file paths,
+which must feed a 3-channel backbone.  Paths stay on the per-step loop
+(the fused epoch and the warm ring need pixels) and decode on the host,
+on the prefetcher's producer thread at ``--prefetch_depth > 0``, at JAX's
+three sites with JAX's seeds: train with the epoch's shuffle seed plus the
+step index, eval with ``train=False``, herding with
+``train=--herding_augmented`` and the batch index.  A path batch's
+lockstep digest is over its paths' UTF-8 bytes, since an object array's
+bytes are pointers.
 """
 
 from __future__ import annotations
@@ -140,6 +151,7 @@ from ..data import (
     train_batches,
 )
 from ..data.augment import AugmentConfig
+from ..data.datasets import is_path_array, maybe_decode, path_digest_bytes
 from ..data.prefetch import DevicePrefetcher, to_device
 from ..models import align, create_model, group_span, grow
 from ..models.resnet import backbone_channels
@@ -252,17 +264,30 @@ class CilTrainer:
 
         channels = backbone_channels(config.backbone)
         data_x = self.scenario_train._x
-        if data_x.shape[-1] != channels:
-            raise ValueError(
-                f"backbone {config.backbone!r} expects {channels}-channel input but "
-                f"data_set {config.data_set!r} has {data_x.shape[-1]} channels"
-            )
-        if data_x.shape[1] != config.input_size:
-            raise ValueError(
-                f"data_set {config.data_set!r} images are {data_x.shape[1]}px "
-                f"but --input_size is {config.input_size}: pass --input_size "
-                f"{data_x.shape[1]}"
-            )
+        if is_path_array(data_x):
+            # A lazy image-folder dataset decodes to RGB at --input_size.
+            if channels != 3:
+                raise ValueError(
+                    f"backbone {config.backbone!r} expects {channels}-channel input but "
+                    f"data_set {config.data_set!r} decodes to RGB"
+                )
+            # The decoder is built now (g++, or the cached library), so no
+            # build lands mid-epoch; without a compiler this raises.
+            from ..utils.image_native import load as load_image_decoder
+
+            load_image_decoder()
+        else:
+            if data_x.shape[-1] != channels:
+                raise ValueError(
+                    f"backbone {config.backbone!r} expects {channels}-channel input but "
+                    f"data_set {config.data_set!r} has {data_x.shape[-1]} channels"
+                )
+            if data_x.shape[1] != config.input_size:
+                raise ValueError(
+                    f"data_set {config.data_set!r} images are {data_x.shape[1]}px "
+                    f"but --input_size is {config.input_size}: pass --input_size "
+                    f"{data_x.shape[1]}"
+                )
         self.aug_cfg = AugmentConfig.from_config(config)
         if channels == 1 and self.aug_cfg.rand_augment:
             # RandAugment's colour and histogram ops are defined on RGB; crop,
@@ -432,6 +457,17 @@ class CilTrainer:
             dist.all_reduce(flag, op=dist.ReduceOp.MIN)
             have = bool(flag.item())
         return have
+
+    def _decode(self, x: np.ndarray, train: bool, seed: int) -> np.ndarray:
+        """A host batch's pixels: uint8 passes, paths decode."""
+        return maybe_decode(x, self.config.input_size, train, seed)
+
+    @staticmethod
+    def _data_digest(x: np.ndarray, y: np.ndarray) -> str:
+        """The lockstep digest of host data; a path array by its paths."""
+        from analysis.lockstep import data_digest
+
+        return data_digest(path_digest_bytes(x) if is_path_array(x) else x, y)
 
     def _count(self, n: int) -> torch.Tensor:
         return torch.tensor([n], dtype=torch.int32, device=self.device)
@@ -674,9 +710,7 @@ class CilTrainer:
             # One digest a task, of the host arrays the resident copy came
             # from: the finest grain the host sees on this path.
             if self.lockstep is not None:
-                from analysis.lockstep import data_digest
-
-                task_digest = data_digest(task_train.x, task_train.y)
+                task_digest = self._data_digest(task_train.x, task_train.y)
         self._lam.fill_(self._lambda_kd(task_id))
         # One generator a task (a captured step binds it), reseeded each
         # epoch: the draws are a pure function of (seed, task, epoch).
@@ -808,8 +842,6 @@ class CilTrainer:
         seed = self._shuffle_seed(task_id, epoch)
         table = None
         if self.lockstep is not None:
-            from analysis.lockstep import data_digest
-
             # The digest is of the global batch, which every rank holds on
             # the host and takes its stripe of: the ranks' digests agree
             # exactly when their pipelines do.  (A rank's own stripe differs
@@ -827,7 +859,8 @@ class CilTrainer:
             digest = None
             if table is not None:  # on the producer thread at depth > 0
                 idx = table[step_idx]
-                digest = data_digest(task_train.x[idx], task_train.y[idx])
+                digest = self._data_digest(task_train.x[idx], task_train.y[idx])
+            xb = self._decode(xb, train=True, seed=seed + step_idx)
             return (*self._to_device(xb, yb), digest)
 
         source = enumerate(train_batches(task_train, self.global_batch_size, seed,
@@ -888,7 +921,12 @@ class CilTrainer:
         totals = None
         source = eval_batches(dataset_val, self.global_batch_size, self.axis.rank,
                               self.axis.size)
-        with self._prefetcher(source, lambda b: self._to_device(*b), None, "eval") as batches:
+
+        def placed(batch):
+            xb, yb, wb = batch
+            return self._to_device(self._decode(xb, train=False, seed=0), yb, wb)
+
+        with self._prefetcher(source, placed, None, "eval") as batches:
             for x, y, w in batches:
                 if self.lockstep is not None:
                     # Shapes and counts only: a digest would fetch the batch.
@@ -914,9 +952,13 @@ class CilTrainer:
         identical without communication."""
         gen = make_generator(self.device, self.config.seed, _HERD_STREAM, task_id)
         feats = []
-        source = sequential_batches(task_train, self.global_batch_size)
-        with self._prefetcher(source, lambda b: self._to_device(b[0]), None, "herd",
-                              task_id=task_id) as batches:
+        source = enumerate(sequential_batches(task_train, self.global_batch_size))
+
+        def placed(item):
+            i, (xb, _yb) = item
+            return self._to_device(self._decode(xb, train=self.config.herding_augmented, seed=i))
+
+        with self._prefetcher(source, placed, None, "herd", task_id=task_id) as batches:
             for (x,) in batches:
                 if self.lockstep is not None:
                     self.lockstep.check("feature_step", program="feature_step", args=(x,),
@@ -937,12 +979,11 @@ class CilTrainer:
         streams its batches through its own ring."""
         cfg = self.config
         nxt = task_id + 1
-        if cfg.prefetch_depth <= 0 or not cfg.fused_epochs or nxt >= len(self.scenario_train):
-            return
+        if (cfg.prefetch_depth <= 0 or not cfg.fused_epochs or nxt >= len(self.scenario_train)
+                or is_path_array(self.scenario_train._x)):
+            return  # a path dataset stays on the per-step loop
         warm_train = self.scenario_train[nxt]
         warm_train.add_samples(*self.memory.get())
-        if warm_train.x.dtype != np.uint8:
-            return
         stride = max(1, len(warm_train.x) // 8)
         self._task_warm = {
             "task_id": nxt,

@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``serving/skew.py``.  The trainer's
 accuracy row says what the live model scored right after weight alignment;
 ``measure_skew`` asks whether the *served* model (export, save, reload, a
 replayed graph a bucket) still scores that, and logs one ``serve_skew``
-record with the per-task served accuracies beside the training row.  The
-port's tasks hold uint8 pixels already, so there is nothing to decode.
+record with the per-task served accuracies beside the training row.  A
+lazy image-folder slice (file paths) decodes as evaluation decodes it
+(``train=False``) at the artifact's ``meta["input_size"]``; pixel slices
+pass through.
 
 ``probe_artifact`` is the online form of the question: the export froze a
 golden ``probe.npz`` (a seeded input and the logits of the artifact's own
@@ -22,6 +24,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..data.datasets import maybe_decode
 from .artifact import _check_sidecar
 
 
@@ -50,7 +53,8 @@ def measure_skew(
     served, weights = [], []
     for j in range(seen):
         task = scenario_val[j]
-        served.append(round(_slice_accuracy(artifact, task.x, task.y), 5))
+        x = maybe_decode(task.x, artifact.meta["input_size"], train=False)
+        served.append(round(_slice_accuracy(artifact, x, task.y), 5))
         weights.append(len(task.y))
     total = max(sum(weights), 1)
     served_acc1 = round(float(sum(a * w for a, w in zip(served, weights)) / total), 5)

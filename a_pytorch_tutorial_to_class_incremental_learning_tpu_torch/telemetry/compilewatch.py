@@ -11,7 +11,8 @@ the port has no XLA, and a compile is one of:
   warm-up step (a real step, run just before) to the capture's end;
 * a **build** of a native library: ``nvcc`` for ``csrc/*.cu``
   (``ops/cuda_build.py``) or ``g++`` for ``csrc/cil_host.cpp``
-  (``utils/native.py``).
+  (``utils/native.py``) and ``…_torch/csrc/image_decode.cpp``
+  (``utils/image_native.py``).
 
 A library already built under ``build/`` counts as a cache hit: its
 lookup-and-load time is ``cache_retrieval_s`` and, as with JAX's persistent

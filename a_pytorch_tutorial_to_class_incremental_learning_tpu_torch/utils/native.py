@@ -27,8 +27,10 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
@@ -59,22 +61,51 @@ _load_attempted = False
 
 def library_path(build_root: Path = BUILD_ROOT, cxx: Optional[str] = None) -> Path:
     """Where the library builds to: a directory named by the hash of the
-    source, the compiler (``cxx``, else ``$CXX``, else ``g++``) and the
-    flags, so an edit builds anew."""
-    cxx = cxx or os.environ.get("CXX") or "g++"
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join((cxx, *CXXFLAGS, *LDFLAGS)).encode())
-    return Path(build_root) / digest.hexdigest()[:16] / "libcilhost.so"
+    source, the compiler (``cxx``, else ``$CXX``, else ``g++``), its version,
+    the machine and the flags, so an edit or another host builds anew."""
+    return host_library_path(SOURCE, "libcilhost.so", CXXFLAGS, LDFLAGS, build_root, cxx)
 
 
 def build(cxx: Optional[str] = None, build_root: Path = BUILD_ROOT) -> Path:
     """Build ``csrc/cil_host.cpp`` unless its library exists; returns the
     library's path.  Raises ``OSError`` or ``subprocess.SubprocessError``
     when there is no compiler or the build fails."""
+    return build_host_library(SOURCE, "libcilhost.so", CXXFLAGS, LDFLAGS, build_root, cxx)
+
+
+def host_library_path(source: Path, name: str, cxxflags, ldflags, build_root: Path = BUILD_ROOT,
+                      cxx: Optional[str] = None) -> Path:
+    """``build_root/<hash>/name``, ``<hash>`` over the source, the compiler
+    and its version, the machine and the flags: a library built on another
+    host (a copied ``build/``) is never loaded."""
+    cxx = cxx or os.environ.get("CXX") or "g++"
+    digest = hashlib.sha256(Path(source).read_bytes())
+    digest.update(" ".join((cxx, _compiler_version(cxx), platform.machine(),
+                            *cxxflags, *ldflags)).encode())
+    return Path(build_root) / digest.hexdigest()[:16] / name
+
+
+@functools.lru_cache(maxsize=None)
+def _compiler_version(cxx: str) -> str:
+    """``cxx -dumpfullversion``; empty when there is no such compiler (the
+    build then raises)."""
+    try:
+        out = subprocess.run([cxx, "-dumpfullversion"], capture_output=True, text=True,
+                             timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return ""
+    return out.stdout.strip()
+
+
+def build_host_library(source: Path, name: str, cxxflags, ldflags, build_root: Path = BUILD_ROOT,
+                       cxx: Optional[str] = None) -> Path:
+    """Build one host C++ source into a shared library unless it exists
+    (fcntl-locked, to a temporary name, then ``os.replace``), report it to
+    ``CompileWatch``, and return its path."""
     from ..telemetry.compilewatch import CompileWatch
 
     cxx = cxx or os.environ.get("CXX") or "g++"
-    lib = library_path(build_root, cxx)
+    lib = host_library_path(source, name, cxxflags, ldflags, build_root, cxx)
     t0 = time.perf_counter()
     cached = lib.exists()
     if not cached:
@@ -87,7 +118,7 @@ def build(cxx: Optional[str] = None, build_root: Path = BUILD_ROOT) -> Path:
             if not cached:
                 tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
                 try:
-                    subprocess.run([cxx, *CXXFLAGS, str(SOURCE), *LDFLAGS, "-o", str(tmp)],
+                    subprocess.run([cxx, *cxxflags, str(source), *ldflags, "-o", str(tmp)],
                                    check=True, capture_output=True, timeout=300)
                     os.replace(tmp, lib)
                 finally:

@@ -12,6 +12,11 @@
                                            # cuDNN (the durability phase's
                                            # child; results to out.pt)
     python3 chip_smoke.py serve            # the serve phase (7) alone
+    python3 chip_smoke.py imagenet [depth ...]
+                                           # the image-folder phase alone (with
+                                           # the kernels' build and widths),
+                                           # once at each --prefetch_depth
+                                           # given (default 0)
     python3 chip_smoke.py gaps [reps]      # the main path's task spans: their
                                            # gaps, with the heartbeats and GC
                                            # pauses inside them
@@ -29,9 +34,10 @@ Phases, in order; any failure exits non-zero before the result lines:
 2. Each kernel against its plain PyTorch version on the card: the CUDA C++
    fused masked-CE forward and backward over the test grid, the train
    step's shape (B=128, W=100, 50 active), a wide head (B=64, W=5000,
-   4321 active) that streams its rows, and the widths the model axis and
-   MNIST bring at their task boundaries' active counts (W=10: 5, 10; W=12:
-   5, 10; W=100: 100; W=102: 50, 60, 100), with smoothing 0 / 0.1 and f32 /
+   4321 active) that streams its rows, and the widths the model axis,
+   MNIST and the image folder bring at their task boundaries' active
+   counts (W=10: 5, 10; W=12: 5, 10; W=100: 100; W=102: 50, 60, 100;
+   W=1000: 100, 1000), with smoothing 0 / 0.1 and f32 /
    bf16 logits.  f32 must agree to rtol 1e-5 / atol 1e-6 (expf/logf and the
    sum order differ from PyTorch's), bf16 outputs to rtol 1e-2 (one bf16
    ulp), masked-column gradients must be exactly 0, the forward's in-kernel
@@ -148,6 +154,19 @@ Phases, in order; any failure exits non-zero before the result lines:
    and ``--data_set mnist`` on IDX files this phase writes from the same
    images: the three bitwise equal, task 0 learned (acc1 above 50);
    resnet32mnist for one task; each run's kernels one run a step (W=10).
+   Then the image folder (``--data_set imagenet1000``): the 20 committed
+   fixtures (``tests/fixtures/images``) decoded on this host, where there
+   is no Pillow, whole and at 224 px (train at seed 0, eval), must give
+   the sha256 digests Pillow and the JAX package gave (``digests.json``);
+   a 128-image batch's decode is timed, train and eval; then
+   ``IMAGENET_ARGV`` on an ImageNet-100 tree of symlinks to them (100
+   classes, 26 train and 5 val images each) through the CLI's trainer:
+   resnet32 at 224 px, B0 Inc10, the parser's RandAugment and memory, 1
+   epoch a task, telemetry on: every epoch per-step, every loss finite,
+   each CE kernel one run a step on the card, a memory of paths, 10 task
+   records in the CLI's order; per epoch ``host_s`` / ``device_s`` /
+   ``stall_frac``, the median step, peak HBM and the phase's wall are
+   printed.
 6. Durability: the main path's recipe (``synthetic_hard128``, resnet32,
    100-wide head, batch 128, B50-inc10, 6 tasks, memory 256, RandAugment,
    the CUDA kernels, the fused and graphed epoch) at 2 epochs a task with
@@ -205,7 +224,8 @@ Phases, in order; any failure exits non-zero before the result lines:
 8. A ``{"ce_round": ...}`` line, an ``{"augment": ..., "precision": ...}``
    line, a ``{"durability": ...}`` line, a ``{"fused": ..., "main_path":
    ..., "herding": ...}`` line, a ``{"model_axis": ..., "mnist": ...}``
-   line, a ``{"serve": ...}`` line, the card's name and power limit, a
+   line, a ``{"serve": ...}`` line, an ``{"imagenet": ...}`` line, the
+   card's name and power limit, a
    ``{"kernels": [...]}`` line, then the card line ``{"ok": true,
    "device": {...}}`` last.
 
@@ -239,11 +259,13 @@ F32_FLOP_PER_S = 67e12
 MAIN_SHAPE = (128, 100, 50)  # the train step's (B, W, active) on task 0
 GRID = [(32, 100, 60), (64, 128, 128), (16, 7, 5), (13, 100, 60), (320, 100, 60),
         (384, 100, 60), MAIN_SHAPE, (64, 5000, 4321)]
-# The widths the model axis and MNIST bring, at their task boundaries' active
-# counts: W=10 (MNIST, 5 + 5 classes; a 40-byte row), W=12 (10 classes at
-# --mesh_model 4), W=102 (100 classes at --mesh_model 3), and W=100 full.
+# The widths the model axis, MNIST and the image folder bring, at their task
+# boundaries' active counts: W=10 (MNIST, 5 + 5 classes; a 40-byte row), W=12
+# (10 classes at --mesh_model 4), W=102 (100 classes at --mesh_model 3), W=100
+# full, and W=1000 (the imagenet1000 head: its first task of 100, and all).
 NEW_WIDTHS = [(128, 10, 5), (128, 10, 10), (128, 12, 5), (128, 12, 10), (128, 100, 100),
-              (128, 102, 50), (128, 102, 60), (128, 102, 100)]
+              (128, 102, 50), (128, 102, 60), (128, 102, 100), (128, 1000, 100),
+              (128, 1000, 1000)]
 PORT = "a_pytorch_tutorial_to_class_incremental_learning_tpu_torch"
 CUDA_SOURCE = f"{PORT}/csrc/fused_ce.cu"
 TRITON_SOURCE = f"{PORT}/ops/triton_fused_loss.py"
@@ -274,6 +296,18 @@ MNIST_ARGV = ["--data_set", "synthetic_mnist", "--backbone", "resnet20mnist",
               "--batch_size", "32", "--num_epochs", "6", "--memory_size", "50",
               "--use_pallas_loss"]
 MNIST_LEARNED = 50.0       # task 0's acc1 after its epochs (5 classes: chance is 20)
+# The imagenet phase: BASELINE.json config #4's protocol (WA, ImageNet-100,
+# B0 Inc10) on an image-folder tree of symlinks to the committed fixtures:
+# 100 class folders of 26 train and 5 val images (cut images a class first,
+# never the input size or the width), resnet32 at 224 px with the parser's
+# default augmentation and memory, 1 epoch a task, telemetry on.
+IMAGENET_FIXTURES = "tests/fixtures/images"
+IMAGENET_CLASSES = 100
+IMAGENET_TRAIN, IMAGENET_VAL = 26, 5
+IMAGENET_ARGV = ["--data_set", "imagenet1000", "--input_size", "224", "--num_bases", "0",
+                 "--increment", "10", "--backbone", "resnet32", "--batch_size", "128",
+                 "--use_pallas_loss", "--num_epochs", "1"]
+DECODE_REPS = 5            # timed decodes of a 128-image batch, each mode
 # The race gate's reference log (PERF.md §2), and the train CE at or above
 # which a task-0 epoch counts as on the plateau of the uniform prediction
 # (ln 50 = 3.912).
@@ -619,8 +653,8 @@ def _bound(t) -> None:
     t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _fwd_bytes(b, w):
-    return b * w * 4 + b * 8 + 4 + 2 * b * 4 + 4  # logits, labels, na -> per, lse, out
+def _fwd_bytes(b, w, esize=4):
+    return b * w * esize + b * 8 + 4 + 2 * b * 4 + 4  # logits, labels, na -> per, lse, out
 
 
 def _mean(xs):
@@ -743,10 +777,13 @@ def phase_timing(torch):
 
 
 # The new widths' shapes on their paths, timed: MNIST's step (B=32, W=10,
-# 10 active in task 1), 10 classes at --mesh_model 4 (W=12) and 100 classes
-# at --mesh_model 3 (W=102), each at the train step's batch where it is not
-# MNIST's.
-WIDTH_SHAPES = [(32, 10, 10), (128, 12, 10), (128, 102, 100)]
+# 10 active in task 1), 10 classes at --mesh_model 4 (W=12), 100 classes at
+# --mesh_model 3 (W=102) and the full imagenet1000 head (W=1000; its first
+# task and all of it, f32 and bf16 logits), each at the train step's batch
+# where it is not MNIST's.
+WIDTH_SHAPES = [(32, 10, 10, "f32"), (128, 12, 10, "f32"), (128, 102, 100, "f32"),
+                (128, 1000, 100, "f32"), (128, 1000, 100, "bf16"), (128, 1000, 1000, "f32"),
+                (128, 1000, 1000, "bf16")]
 
 
 def phase_widths(torch):
@@ -760,9 +797,11 @@ def phase_widths(torch):
     out = {}
     one = torch.ones((), device="cuda")
     g = torch.tensor(1.0, device="cuda")
-    for b, w, active in WIDTH_SHAPES:
+    for b, w, active, dname in WIDTH_SHAPES:
         scale = 1.0 / b
-        x, y, na = _inputs(torch, b, w, active, torch.float32, seed=3)
+        dtype = torch.float32 if dname == "f32" else torch.bfloat16
+        esize = 4 if dname == "f32" else 2
+        x, y, na = _inputs(torch, b, w, active, dtype, seed=3)
         xg = x.clone().requires_grad_(True)
         lse = fl.fused_ce_fwd(x, y, na, 0.0, scale)[1]
         library_round = _device_ms(torch, lambda: torch.autograd.grad(
@@ -772,20 +811,20 @@ def phase_widths(torch):
                     "plain_ms": _device_ms(torch, lambda: fl.fused_ce_fwd_plain(
                         x, y, na, 0.0, scale)),
                     "library_ms": _device_ms(torch, lambda: F.cross_entropy(x[:, :active], y)),
-                    "bytes": _fwd_bytes(b, w), "ops": 6 * b * w},
+                    "bytes": _fwd_bytes(b, w, esize), "ops": 6 * b * w},
             "bwd": {"ms": _device_ms(torch, lambda: fl.fused_ce_bwd(x, y, na, lse, g, 0.0,
                                                                      scale)),
                     "plain_ms": _device_ms(torch, lambda: fl.fused_ce_bwd_plain(
                         x, y, na, lse, g, 0.0, scale)),
                     "library_ms": library_round,
-                    "bytes": 2 * b * w * 4 + b * 8 + 4 + b * 4 + 4, "ops": 7 * b * w},
+                    "bytes": 2 * b * w * esize + b * 8 + 4 + b * 4 + 4, "ops": 7 * b * w},
         }
         for op, t in rows.items():
             _bound(t)
-            print(f"[widths] {op} B={b} W={w} active={active}: ms={t['ms']:.5f} "
+            print(f"[widths] {op} B={b} W={w} active={active} {dname}: ms={t['ms']:.5f} "
                   f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f} "
                   f"bound_ms={t['bound_ms']:.7f} ({t['bound_by']}) [{CARD}]")
-        out[f"B{b}_W{w}_a{active}"] = rows
+        out[f"B{b}_W{w}_a{active}" + ("" if dname == "f32" else f"_{dname}")] = rows
     return out
 
 
@@ -813,9 +852,10 @@ def _check_counts(what: str, counts: dict, steps: int, captures: int) -> None:
           f"{counts['calls']}) for {steps} train steps and {captures} graph captures")
 
 
-def _profile_epoch(torch, trainer, task_id, epoch):
-    """Wrap the trainer's fused epoch so that epoch ``epoch`` of task
-    ``task_id`` runs under ``torch.profiler``; the returned dict gets that
+def _profile_epoch(torch, trainer, task_id, epoch, method="_run_epoch_fused"):
+    """Wrap the trainer's fused epoch (or, with ``method`` set to
+    ``"_run_epoch_steps"``, its per-step epoch) so that epoch ``epoch`` of
+    task ``task_id`` runs under ``torch.profiler``; the returned dict gets that
     epoch's kernels (``{name: [count, device µs]}``), its steps, the card's
     busy ms a step (``utils/profiling.device_step_ms``), its synchronized
     wall ms and the fused-CE kernels' own counts of their runs in it
@@ -829,15 +869,16 @@ def _profile_epoch(torch, trainer, task_id, epoch):
     )
 
     seen = {}
-    run = trainer._run_epoch_fused
+    run = getattr(trainer, method)
+    epoch_at = {"_run_epoch_fused": 2, "_run_epoch_steps": 1}[method]
 
-    def profiled(t, n, resident, e, gen, clock, *rest):
-        if (t, e) != (task_id, epoch):
-            return run(t, n, resident, e, gen, clock, *rest)
+    def profiled(t, *args):
+        if (t, args[epoch_at]) != (task_id, epoch):
+            return run(t, *args)
         ran = fl.device_launches()  # waits for the queued work
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rows = run(t, n, resident, e, gen, clock, *rest)
+            rows = run(t, *args)
             torch.cuda.synchronize()
             seen["wall_ms"] = 1e3 * (time.perf_counter() - t0)
         seen["ran"] = [b - a for a, b in zip(ran, fl.device_launches())]
@@ -846,7 +887,7 @@ def _profile_epoch(torch, trainer, task_id, epoch):
         seen["busy_ms_per_step"] = device_step_ms(prof, len(rows))["trace_step_ms"]
         return rows
 
-    trainer._run_epoch_fused = profiled
+    setattr(trainer, method, profiled)
     return seen
 
 
@@ -2006,6 +2047,136 @@ def phase_mnist(torch):
             for name, run in runs.items()}
 
 
+def _imagenet_tree(root: str, fixtures: str) -> int:
+    """An ImageNet-100 tree under ``root``: ``IMAGENET_CLASSES`` class
+    folders of symlinks to the fixtures under distinct names, the fixtures
+    taken in turn; returns the number of links."""
+    names = sorted(f for f in os.listdir(fixtures) if f.lower().endswith((".jpg", ".jpeg", ".png")))
+    k = 0
+    for split, per in (("train", IMAGENET_TRAIN), ("val", IMAGENET_VAL)):
+        for c in range(IMAGENET_CLASSES):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d)
+            for i in range(per):
+                src = names[k % len(names)]
+                os.symlink(os.path.join(fixtures, src), os.path.join(d, f"{c:03d}_{i:02d}_{src}"))
+                k += 1
+    return k
+
+
+def phase_imagenet(torch, depth: int = 0):
+    """The image-folder dataset on the card (``--data_set imagenet1000``):
+    the fixtures' decodes on this host (no Pillow here) against the digests
+    Pillow and the JAX package gave; a 128-image batch's decode time, train
+    and eval at 224 px; then ``IMAGENET_ARGV`` at ``--prefetch_depth
+    depth`` on an ImageNet-100 tree through the CLI's trainer: per-step
+    epochs, finite losses, each CE kernel one run a step on the card, a
+    memory of paths, 10 task records in the CLI's order."""
+    import numpy as np
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import datasets
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import image_native
+
+    t_phase = time.perf_counter()
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), IMAGENET_FIXTURES)
+    want = json.load(open(os.path.join(fixtures, "digests.json")))
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+    for name, ref in sorted(want.items()):
+        path = os.path.join(fixtures, name)
+        one = np.asarray([path], object)
+        got = {"full": sha(image_native.decode_full(path)),
+               "train_seed0_224": sha(datasets.decode_image_batch(one, 224, True, 0)),
+               "eval_224": sha(datasets.decode_image_batch(one, 224, False, 0))}
+        check(got == {k: ref[k] for k in got},
+              f"the port's decode of {name} on this host differs from Pillow's digests: "
+              + ", ".join(k for k in got if got[k] != ref[k]))
+    print(f"[imagenet] {len(want)} fixtures: full, train (seed 0) and eval decodes at 224 px "
+          "equal Pillow's digests (digests.json)")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "imagenet100")
+        links = _imagenet_tree(root, fixtures)
+        batch = datasets.load_image_folder(root, True)[0][:128]
+        decode = {}
+        for mode, train in (("train", True), ("eval", False)):
+            times = []
+            for rep in range(DECODE_REPS):
+                t0 = time.perf_counter()
+                out = datasets.decode_image_batch(batch, 224, train, rep)
+                times.append(1e3 * (time.perf_counter() - t0))
+            check(out.shape == (128, 224, 224, 3), f"decoded batch {out.shape}")
+            ms = statistics.median(times)
+            decode[mode] = {"ms": ms, "images_per_s": 128 / ms * 1e3, "all_ms": times}
+            print(f"[imagenet] decode {mode}: 128 images at 224 px in {ms:.2f} ms (median of "
+                  f"{DECODE_REPS}), {128 / ms * 1e3:.0f} images/s on "
+                  f"{image_native.THREADS} threads, {os.cpu_count()} cores [{CARD}]")
+        log, tel = os.path.join(tmp, "imagenet.jsonl"), os.path.join(tmp, "tel")
+        trainer = build_trainer([*IMAGENET_ARGV, "--data_path", root, "--log_file", log,
+                                 "--telemetry_dir", tel, "--prefetch_depth", str(depth)])
+        torch.cuda.synchronize()
+        # The last task's epoch under the profiler: the card's busy ms a
+        # step, against the step's wall, says which side bounds the step.
+        last = _profile_epoch(torch, trainer, IMAGENET_CLASSES // 10 - 1, 0, "_run_epoch_steps")
+        torch.cuda.reset_peak_memory_stats()
+        fl.reset_launches()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _counts(fl)
+        peak = torch.cuda.max_memory_allocated()
+        records = [json.loads(ln) for ln in open(log)]
+        files = sorted(os.listdir(tel))
+        memory_x = trainer.memory.get()[0]
+    steps = trainer.global_step
+    _check_counts("imagenet", counts, steps, 0)
+    check(last.get("ran") == [last.get("steps")] * 2,
+          f"imagenet: the profiled epoch's kernels ran {last.get('ran')} for "
+          f"{last.get('steps')} steps")
+    busy_ms = last["busy_ms_per_step"]
+    wall_ms = last["wall_ms"] / last["steps"]
+    epochs = [r for r in records if r["type"] == "epoch"]
+    nb_tasks = result["nb_tasks"]
+    types = [r["type"] for r in records if r["type"] in CORE_RECORDS]
+    want_types = ["run"] + ["epoch", "task", "cil_metrics"] * (IMAGENET_CLASSES // 10) + ["final"]
+    check(nb_tasks == 10 and types == want_types, f"imagenet record sequence {types}")
+    check(all(r["fused"] is False and r["graphed"] is False for r in epochs),
+          "the imagenet epochs are not per-step")
+    check(sum(r["steps"] for r in epochs) == steps, "imagenet epoch records miss steps")
+    check(all(r.get("prefetch_depth", 0) == depth for r in epochs),
+          f"imagenet epochs not at prefetch depth {depth}")
+    for r in epochs:
+        check(all(math.isfinite(r[k]) for k in ("loss", "ce", "kd", "acc1")),
+              f"non-finite metrics in {r}")
+    check(memory_x.dtype == object and len(memory_x) > 0
+          and all(str(p).startswith(root) for p in memory_x),
+          f"the memory does not hold the tree's paths: {memory_x.dtype} {memory_x[:2]}")
+    check({"spans.jsonl", "trace.json"} <= set(files), f"imagenet telemetry files {files}")
+    step_ms = _step_ms(epochs)
+    wall_s = time.perf_counter() - t_phase
+    for r in epochs:
+        print(f"[imagenet depth {depth}] task {r['task_id']}: {r['steps']} steps, host_s "
+              f"{r['host_s']:.4f} "
+              f"device_s {r['device_s']:.4f} stall_frac {r['stall_frac']:.4f}, loss "
+              f"{r['loss']:.4f}")
+    print(f"[imagenet depth {depth}] task 9 under the profiler: the card busy {busy_ms:.3f} ms "
+          f"a step of {wall_ms:.3f} ms wall ({last['steps']} steps) [{CARD}]")
+    print(f"[imagenet depth {depth}] {links} links, {steps} steps, median step {step_ms:.3f} ms at 224 px, "
+          f"fit {fit_s:.2f} s, peak HBM {peak} bytes, kernels ran {counts['ran']}, memory "
+          f"{len(memory_x)} paths, acc1s {[round(a, 3) for a in result['acc1s']]}, phase "
+          f"{wall_s:.1f} s [{CARD}]")
+    return {"prefetch_depth": depth,
+            "decode": {k: {"ms": v["ms"], "images_per_s": v["images_per_s"]}
+                       for k, v in decode.items()},
+            "epochs": [{k: r[k] for k in ("task_id", "steps", "host_s", "device_s",
+                                          "stall_frac", "epoch_s")} for r in epochs],
+            "steps": steps, "step_ms": step_ms, "fit_s": fit_s, "peak_hbm_bytes": peak,
+            "last_task_busy_ms": busy_ms, "last_task_wall_ms": wall_ms,
+            "launches": counts["ran"], "memory": len(memory_x), "wall_s": wall_s,
+            "acc1s": result["acc1s"]}
+
+
 def _step_at(torch, batches, snap, teacher_sd, i, dtype, use_pallas_loss):
     """One 1-rank step on the 128-row batch ``i``, augmented in one process
     with step ``i``'s generator, from the state ``snap`` (in ``dtype``);
@@ -2897,6 +3068,25 @@ def gaps(reps: int) -> int:
     return 0
 
 
+def imagenet_only(torch, depths) -> int:
+    """``imagenet [DEPTH ...]``: the environment (the kernels' build), the
+    width timings and the image-folder phase at each ``--prefetch_depth``
+    given (default 0)."""
+    global CARD
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 2
+    try:
+        CARD = phase_environment(torch)[0]
+        widths = phase_widths(torch)
+        imagenet = [phase_imagenet(torch, d) for d in depths or [0]]
+    except (SmokeFailure, ImportError) as exc:
+        print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"imagenet": imagenet, "width_timing": widths, "card": CARD}))
+    return 0
+
+
 def serve_only(torch) -> int:
     """``serve``: the serve phase alone (the kernels build on first use)."""
     global CARD
@@ -3097,6 +3287,8 @@ def main() -> int:
         return serve_child(sys.argv[2], sys.argv[3])
     if len(sys.argv) > 1 and sys.argv[1] == "serve":
         return serve_only(torch)
+    if len(sys.argv) > 1 and sys.argv[1] == "imagenet":
+        return imagenet_only(torch, [int(a) for a in sys.argv[2:]])
     if len(sys.argv) > 1 and sys.argv[1] == "gaps":
         return gaps(int(sys.argv[2]) if len(sys.argv) > 2 else 2)
     if not torch.cuda.is_available():
@@ -3117,6 +3309,7 @@ def main() -> int:
         dp = phase_data_parallel(torch)
         model_axis = phase_model_axis(torch)
         mnist = phase_mnist(torch)
+        imagenet = phase_imagenet(torch)
         durability = phase_durability(torch)
         serve = phase_serve(torch)
     except (SmokeFailure, ImportError) as exc:
@@ -3187,6 +3380,7 @@ def main() -> int:
                       "kernel_widths": sorted({w for _, w, _ in GRID + NEW_WIDTHS}),
                       "width_timing": widths, "card": smi}))
     print(json.dumps({"serve": serve, "card": smi}))
+    print(json.dumps({"imagenet": imagenet, "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -105,3 +105,34 @@ def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
                               text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_image_folder_decodes_without_pil_or_jax():
+    """Building the ``imagenet1000`` dataset from the committed fixtures and
+    decoding a batch, train and eval, leaves PIL and JAX unimported."""
+    fixtures = os.path.join(REPO, "tests", "fixtures", "images")
+    code = (
+        "import os, shutil, sys, tempfile\n"
+        f"from {PORT}.data import build_raw_dataset, datasets\n"
+        "root = tempfile.mkdtemp()\n"
+        "for split in ('train', 'val'):\n"
+        "    for c in ('a', 'b'):\n"
+        "        d = os.path.join(root, split, c)\n"
+        "        os.makedirs(d)\n"
+        f"        for f in sorted(os.listdir({fixtures!r}))[:4]:\n"
+        f"            os.symlink(os.path.join({fixtures!r}, f), os.path.join(d, f))\n"
+        "(x, y), n = build_raw_dataset('imagenet1000', root, True)\n"
+        "assert x.dtype == object and n == 2\n"
+        "paths = x[[p.endswith(('.jpg', '.png', '.JPEG')) for p in x]]\n"
+        "for train in (True, False):\n"
+        "    b = datasets.decode_image_batch(paths, 64, train, 0)\n"
+        "    assert b.shape == (len(paths), 64, 64, 3), b.shape\n"
+        "shutil.rmtree(root)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(paths))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")

@@ -99,11 +99,13 @@ def test_no_native_env_forces_numpy(monkeypatch):
     np.testing.assert_array_equal(tnative.gather_rows(src, np.array([5, 0])), src[[5, 0]])
 
 
-# A stand-in compiler: records its run, then writes its output in two halves
-# with a pause between, so an unlocked concurrent build would read (or
-# replace) a half-written library.
+# A stand-in compiler: answers the version query the build hash asks, and
+# otherwise records its run, then writes its output in two halves with a
+# pause between, so an unlocked concurrent build would read (or replace) a
+# half-written library.
 _STUB = textwrap.dedent("""\
     #!/bin/sh
+    if [ "$1" = "-dumpfullversion" ]; then echo 0.0-stub; exit 0; fi
     out=""
     prev=""
     for a in "$@"; do
