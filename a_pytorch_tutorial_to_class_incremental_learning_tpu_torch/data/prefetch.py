@@ -45,6 +45,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from contextlib import nullcontext
 from typing import Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
@@ -198,8 +199,9 @@ class DevicePrefetcher:
         if self.depth == 0 or self._degraded:
             # Synchronous passthrough; also the path after a degradation:
             # the dead producer left the source one batch past the handback.
-            t0 = time.perf_counter()
-            try:
+            # The clock's host bucket gets it, less what the placement
+            # charged to the device.
+            with self._clock.host() if self._clock is not None else nullcontext():
                 try:
                     host_batch = next(self._source)
                 except StopIteration:
@@ -207,8 +209,6 @@ class DevicePrefetcher:
                     self.close()
                     raise
                 return self._place(host_batch)
-            finally:
-                self._charge(time.perf_counter() - t0)
         self._fill_sum += self._queue.qsize()
         self._gets += 1
         t0 = time.perf_counter()

@@ -153,7 +153,7 @@ from ..data import (
 from ..data.augment import AugmentConfig
 from ..data.datasets import is_path_array, maybe_decode, path_digest_bytes
 from ..data.prefetch import DevicePrefetcher, to_device
-from ..models import align, create_model, group_span, grow
+from ..models import align, create_model, group_span, grow, trainer_keys
 from ..models.resnet import backbone_channels
 from ..ops.precision import policy_from_config
 from ..parallel import barrier, broadcast_module, make_mesh
@@ -164,6 +164,7 @@ from ..telemetry import (
     Telemetry,
     average_incremental_accuracy,
 )
+from ..utils import jax_random
 from ..utils.logging import JsonlLogger, MetricLogger
 from ..utils.profiling import task_trace
 from ..utils.platform import derive_seed, make_generator, resolve_device, use_full_f32
@@ -179,8 +180,8 @@ from .train import (
     sgd_init,
 )
 
-# Generator streams: (seed, stream, task[, epoch]) coordinates.
-_INIT_STREAM = 0xC11
+# Generator streams: (seed, stream, task[, epoch]) coordinates.  The
+# initial network and the heads come from JAX's keys (``trainer_keys``).
 _HERD_STREAM = 0xFEED
 _AUG_STREAM = 0xA06
 
@@ -300,9 +301,11 @@ class CilTrainer:
         # batch_size is per process, as the reference's per-GPU batch.
         self.global_batch_size = config.batch_size * self.axis.size
 
+        # JAX's initial network for this seed; each task's head grows from
+        # fold_in(grow_key, task) (``_grow_state``).
+        _, self._grow_key = trainer_keys(config.seed)
         model = create_model(
-            config.backbone, self.nb_classes,
-            seed=derive_seed(config.seed, _INIT_STREAM),
+            config.backbone, self.nb_classes, seed=config.seed,
             bn_group_size=config.bn_group_size, axis=self.axis, policy=self.policy,
             width_multiple=self.mesh.model.size, model_axis=self.mesh.model,
         ).to(self.device)
@@ -472,9 +475,39 @@ class CilTrainer:
     def _count(self, n: int) -> torch.Tensor:
         return torch.tensor([n], dtype=torch.int32, device=self.device)
 
-    def _to_device(self, *arrays: np.ndarray):
+    def _card_mark(self, clock: Optional[StallClock]):
+        """At ``--prefetch_depth 0`` on CUDA: ``clock``, the host time and an
+        event recorded on the stream behind the queued steps, as a batch's
+        production begins (:meth:`_to_device` reads them); else None."""
+        if clock is None or self.config.prefetch_depth > 0 or self.device.type != "cuda":
+            return None
+        began = torch.cuda.Event(enable_timing=True)
+        began.record(torch.cuda.current_stream(self.device))
+        return clock, time.perf_counter(), began
+
+    def _to_device(self, *arrays: np.ndarray, mark=None):
         """The host-to-device copy of a batch; through pinned memory,
-        without blocking the host, when a prefetcher's producer makes it."""
+        without blocking the host, when a prefetcher's producer makes it.
+        At ``--prefetch_depth 0`` on CUDA the copy is pageable and blocking:
+        it waits for the steps already queued on the card.  Given the
+        ``mark`` of :meth:`_card_mark` taken as the batch's production
+        began, only the card's idle time is charged to the clock's host
+        bucket: the production the card's queued work overlapped (until
+        the stream reached the mark's event) and the wait before the copy
+        (the stream synchronized first) go to the device bucket.  The batch
+        and the wall time are the same either way."""
+        if mark is not None:
+            clock, t0, began = mark
+            stream = torch.cuda.current_stream(self.device)
+            overlapped = time.perf_counter() - t0
+            if began.query():  # the card ran dry during the production
+                now = torch.cuda.Event(enable_timing=True)
+                now.record(stream)
+                now.synchronize()
+                overlapped = max(0.0, overlapped - began.elapsed_time(now) / 1e3)
+            clock.add_device(overlapped)
+            with clock.device():
+                stream.synchronize()
         return to_device(self.device, *arrays, pinned=self.config.prefetch_depth > 0)
 
     # ------------------------------------------------------------------ #
@@ -610,8 +643,7 @@ class CilTrainer:
 
     def _grow_state(self, task_id: int, known: int, nb_new: int) -> None:
         """Head growth, a fresh SGD momentum and the task's class counts."""
-        gen = make_generator(torch.device("cpu"), self.config.seed, _INIT_STREAM, task_id)
-        grow(self.state.model, gen, known, nb_new)
+        grow(self.state.model, jax_random.fold_in(self._grow_key, task_id), known, nb_new)
         self.state.momentum = sgd_init(self.state.model.parameters())
         self.state.num_active = self._count(known + nb_new)
         self.state.known = self._count(known)
@@ -851,6 +883,7 @@ class CilTrainer:
 
         def placed(item):
             step_idx, (xb, yb) = item
+            mark = self._card_mark(clock)
             # data.produce: slow_batch stalls, producer_die raises here (on
             # the producer thread at depth > 0, which then degrades).
             if self.faults is not None:
@@ -861,7 +894,7 @@ class CilTrainer:
                 idx = table[step_idx]
                 digest = self._data_digest(task_train.x[idx], task_train.y[idx])
             xb = self._decode(xb, train=True, seed=seed + step_idx)
-            return (*self._to_device(xb, yb), digest)
+            return (*self._to_device(xb, yb, mark=mark), digest)
 
         source = enumerate(train_batches(task_train, self.global_batch_size, seed,
                                          self.axis.rank, self.axis.size))

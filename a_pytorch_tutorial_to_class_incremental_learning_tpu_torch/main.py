@@ -40,9 +40,12 @@ def build_trainer(argv: Optional[Sequence[str]] = None) -> CilTrainer:
     args = parser.parse_args(argv)
     if args.host_devices:
         raise NotImplementedError(
-            "--host_devices is not ported yet: multi-device runs arrive with "
-            "a later slice of the PyTorch port (launch one process per "
-            "device with torchrun instead)"
+            "--host_devices emulates XLA host devices, which PyTorch has no "
+            "counterpart of: torchrun with one process per device takes its "
+            "place (torchrun --nproc_per_node N -m "
+            "a_pytorch_tutorial_to_class_incremental_learning_tpu_torch ... "
+            "--mesh_data N; --platform cpu runs the processes on the CPU "
+            "over gloo)"
         )
     init_distributed_mode(args.dist_url, args.platform)
     return CilTrainer(config_from_args(args), device=args.platform)

@@ -19,8 +19,13 @@ import torch.nn as nn
 
 from ..ops.precision import PRESETS, Policy
 from ..parallel.mesh import DataAxis, ModelAxis, param_sharding
+from ..utils import jax_random
 from .classifier import grow_head, masked_logits, weight_align
 from .resnet import get_backbone
+
+# The trainer's stream for its initial network and its heads (JAX
+# ``engine/loop.py:297-300``).
+INIT_STREAM = 0xC11
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -32,16 +37,19 @@ class CilModel(nn.Module):
     ``policy`` (``ops/precision.py``); the logits are f32 under every
     preset.  ``width`` is the full head's; with a ``model_axis`` whose size
     divides it, ``fc`` holds this rank's ``width / m`` rows and
-    ``head_axis`` is that axis (None for a whole head)."""
+    ``head_axis`` is that axis (None for a whole head).  The backbone is
+    drawn as JAX's ``CilModel.init(key, ...)`` draws it (``key`` None:
+    ``PRNGKey(0)``, JAX ``create_model``'s)."""
 
     def __init__(self, backbone_name: str = "resnet32", width: int = 100,
-                 generator: Optional[torch.Generator] = None,
+                 key: Optional[jax_random.Key] = None,
                  bn_group_size: int = 0, axis: Optional[DataAxis] = None,
                  policy: Policy = PRESETS["f32"], model_axis: Optional[ModelAxis] = None):
         super().__init__()
         self.policy = policy
         self.width = width
-        self.backbone = get_backbone(backbone_name, generator, bn_group_size, axis, policy)
+        self.backbone = get_backbone(backbone_name, key, ("backbone",), bn_group_size, axis,
+                                     policy)
         out_dim = self.backbone.out_dim
         model_axis = model_axis or ModelAxis()
         sharded = param_sharding(model_axis, "fc.weight", (width, out_dim)) is not None
@@ -64,12 +72,22 @@ class CilModel(nn.Module):
         return self.backbone(x, train=train)
 
 
+def trainer_keys(seed: int) -> Tuple[jax_random.Key, jax_random.Key]:
+    """``(init_key, grow_key)`` of the trainer at ``--seed seed``: JAX's
+    ``split(fold_in(PRNGKey(seed), 0xC11))``.  The backbone is drawn from
+    the first, task ``t``'s head from ``fold_in(grow_key, t)``."""
+    init_key, grow_key = jax_random.split(jax_random.fold_in(jax_random.key(seed), INIT_STREAM))
+    return init_key, grow_key
+
+
 def create_model(backbone_name: str, nb_classes: int, seed: int = 0,
                  bn_group_size: int = 0, axis: Optional[DataAxis] = None,
                  policy: Policy = PRESETS["f32"], width_multiple: int = 1,
                  model_axis: Optional[ModelAxis] = None) -> CilModel:
-    """Build the model with backbone weights drawn from ``seed`` and a zero
-    (fully inactive) head, on the CPU; the caller moves it to its device.
+    """Build the model with the JAX trainer's initial backbone for
+    ``--seed seed`` (JAX ``init_backbone`` from the ``init_key`` of
+    :func:`trainer_keys`) and a zero (fully inactive) head, on the CPU; the
+    caller moves it to its device.
     The head is ``nb_classes`` rounded up to a multiple of
     ``width_multiple`` wide (JAX ``create_model``: the model-axis size, so
     that the head shards), held as this rank's shard on ``model_axis``.
@@ -77,14 +95,15 @@ def create_model(backbone_name: str, nb_classes: int, seed: int = 0,
     axis its BN layers reduce over; ``policy`` the precision preset.  The
     input channels come with the backbone's name (JAX's ``channels`` only
     shapes its init's dummy input)."""
-    generator = torch.Generator().manual_seed(seed)
     width = round_up(nb_classes, max(width_multiple, 1))
-    return CilModel(backbone_name, width, generator, bn_group_size, axis, policy, model_axis)
+    return CilModel(backbone_name, width, trainer_keys(seed)[0], bn_group_size, axis, policy,
+                    model_axis)
 
 
-def grow(model: CilModel, generator: torch.Generator, known: int, nb_new: int) -> None:
-    """Activate (initialize) the next task's head rows."""
-    grow_head(model.fc, generator, known, nb_new, model.head_axis)
+def grow(model: CilModel, key: jax_random.Key, known: int, nb_new: int) -> None:
+    """Activate (initialize) the next task's head rows from ``key`` (the
+    trainer's: ``fold_in(grow_key, task)``)."""
+    grow_head(model.fc, key, known, nb_new, model.head_axis)
 
 
 def align(model: CilModel, known: int, nb_new: int) -> float:

@@ -13,6 +13,9 @@ rows ``[k·W/m, (k+1)·W/m)`` of the full head, and ``axis`` its
 growth draws every new row on every rank and keeps its own, and alignment
 takes its norms over the gathered head, so each gives every rank its rows
 of the unsharded result.
+
+A new head's rows are drawn from a JAX key as the JAX package draws its
+columns (``utils/jax_random.py``), so one key grows one head in both.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import ModelAxis, gather_full, gather_rows
+from ..utils import jax_random
 
 # Finite stand-in for -inf: exp(NEG_INF - m) is exactly 0 in f32, so masked
 # columns get zero probability and zero gradient without NaNs.
@@ -30,18 +34,19 @@ NEG_INF = -1e9
 
 
 def torch_linear_init(
-    generator: torch.Generator, feat_dim: int, nb_new: int
+    key: jax_random.Key, feat_dim: int, nb_new: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``nn.Linear``'s default init for one new head: weight and bias both
-    ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``.  Returns ``(weight [nb_new,
-    feat_dim], bias [nb_new])`` on the generator's device."""
+    """``nn.Linear``'s default init for one new head, weight and bias both
+    ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, drawn as JAX
+    ``torch_linear_init`` draws them (JAX ``models/classifier.py:39-58``):
+    the kernel ``[feat_dim, nb_new]`` and the bias from the two keys of
+    ``split(key)``.  Returns ``(weight [nb_new, feat_dim], bias [nb_new])``
+    on the CPU."""
     bound = 1.0 / (feat_dim ** 0.5)
-    dev = generator.device
-    weight = torch.empty(nb_new, feat_dim, device=dev).uniform_(
-        -bound, bound, generator=generator
-    )
-    bias = torch.empty(nb_new, device=dev).uniform_(-bound, bound, generator=generator)
-    return weight, bias
+    wk, bk = jax_random.split(key)
+    kernel = jax_random.uniform(wk, (feat_dim, nb_new), -bound, bound)
+    bias = jax_random.uniform(bk, (nb_new,), -bound, bound)
+    return torch.from_numpy(kernel.T.copy()), torch.from_numpy(bias)
 
 
 def _sharded(axis: Optional[ModelAxis]) -> bool:
@@ -57,16 +62,16 @@ def _rows(fc: torch.nn.Linear, axis: Optional[ModelAxis]) -> Tuple[int, int]:
 
 
 @torch.no_grad()
-def grow_head(fc: torch.nn.Linear, generator: torch.Generator, known: int, nb_new: int,
+def grow_head(fc: torch.nn.Linear, key: jax_random.Key, known: int, nb_new: int,
               axis: Optional[ModelAxis] = None) -> None:
-    """Initialize the rows ``[known, known + nb_new)`` for a new task.  A
-    shard draws all ``nb_new`` rows, as the full head does, and keeps its
-    own: the generator's stream stays in step with an unsharded run."""
+    """Initialize the rows ``[known, known + nb_new)`` for a new task from
+    ``key``.  A shard draws all ``nb_new`` rows, as the full head does, and
+    keeps its own."""
     lo, width = _rows(fc, axis)
     feat_dim = fc.weight.shape[1]
     if known + nb_new > width:
         raise ValueError(f"head overflow: known={known} + new={nb_new} > width={width}")
-    w, b = torch_linear_init(generator, feat_dim, nb_new)
+    w, b = torch_linear_init(key, feat_dim, nb_new)
     start, stop = max(known, lo), min(known + nb_new, lo + fc.weight.shape[0])
     if start < stop:
         fc.weight[start - lo:stop - lo] = w[start - known:stop - known].to(fc.weight.device)

@@ -22,8 +22,7 @@ f32); the pooled feature is f32.
 
 from __future__ import annotations
 
-import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -31,6 +30,7 @@ import torch.nn.functional as F
 
 from ..ops.precision import PRESETS, Policy
 from ..parallel.mesh import DataAxis
+from ..utils import jax_random
 from .norm import BatchNorm, make_norm, stats_dtype
 
 
@@ -84,7 +84,7 @@ class CifarResNet(nn.Module):
     out_dim = 64
 
     def __init__(self, depth: int = 32, channels: int = 3,
-                 generator: Optional[torch.Generator] = None,
+                 key: Optional[jax_random.Key] = None, scope: Sequence[str] = (),
                  bn_group_size: int = 0, axis: Optional[DataAxis] = None,
                  policy: Policy = PRESETS["f32"]):
         super().__init__()
@@ -108,17 +108,24 @@ class CifarResNet(nn.Module):
                 ))
                 self._block_names.append(name)
                 cin = planes
-        self.reset_parameters(generator)
+        self.reset_parameters(jax_random.key(0) if key is None else key, scope)
 
     @torch.no_grad()
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """He init over fan-out, ``N(0, sqrt(2 / (kh·kw·out)))`` untruncated,
-        BN at scale 1 / bias 0 / mean 0 / var 1."""
-        for m in self.modules():
+    def reset_parameters(self, key: jax_random.Key, scope: Sequence[str] = ()) -> None:
+        """flax's ``init`` of this backbone from the ``params`` key ``key``,
+        the backbone being the flax module at path ``scope``: each conv
+        kernel He normal over fan-out, ``N(0, sqrt(2 / (kh·kw·out)))``
+        untruncated (JAX ``models/resnet.py:46-50``), drawn as JAX draws it
+        from its parameter's key (``utils/jax_random.py``) and turned from
+        ``HWIO`` to ``OIHW``; BN at scale 1 / bias 0 / mean 0 / var 1.  The
+        default key, ``PRNGKey(0)`` at the root, is JAX's
+        ``CifarResNet().init(PRNGKey(0), x)``."""
+        for name, m in self.named_modules():
             if isinstance(m, Conv2d):
+                k = jax_random.param_key(key, (*scope, *name.split(".")))
                 kh, kw = m.kernel_size
-                std = math.sqrt(2.0 / (kh * kw * m.out_channels))
-                m.weight.normal_(0.0, std, generator=generator)
+                w = jax_random.he_normal_fan_out(k, (kh, kw, m.in_channels, m.out_channels))
+                m.weight.copy_(torch.from_numpy(w.transpose(3, 2, 0, 1)))
             elif isinstance(m, BatchNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
@@ -166,13 +173,14 @@ def backbone_channels(name: str) -> int:
     return 1 if "mnist" in name else 3
 
 
-def get_backbone(name: str, generator: Optional[torch.Generator] = None,
+def get_backbone(name: str, key: Optional[jax_random.Key] = None, scope: Sequence[str] = (),
                  bn_group_size: int = 0, axis: Optional[DataAxis] = None,
                  policy: Policy = PRESETS["f32"]) -> CifarResNet:
-    """Flag string -> backbone; ``bn_group_size``/``axis`` pick its BN
-    (``models/norm.py``), ``policy`` its dtypes."""
+    """Flag string -> backbone, initialized from ``key`` at flax path
+    ``scope`` (:meth:`CifarResNet.reset_parameters`); ``bn_group_size``/
+    ``axis`` pick its BN (``models/norm.py``), ``policy`` its dtypes."""
     try:
         depth, channels = _BACKBONES[name]
     except KeyError:
         raise NotImplementedError(f"Unknown backbone {name}") from None
-    return CifarResNet(depth, channels, generator, bn_group_size, axis, policy)
+    return CifarResNet(depth, channels, key, scope, bn_group_size, axis, policy)

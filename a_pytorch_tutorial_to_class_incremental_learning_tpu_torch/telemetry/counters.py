@@ -30,8 +30,11 @@ class StallClock:
     The epoch loop charges every interval to one bucket: ``host`` (batch
     index math, uint8 gather, the host-to-device copy) or ``device`` (step
     dispatch and the final metrics fetch, i.e. time the host spends waiting
-    on the card).  ``stall_frac = host / (host + device)`` reads as the
-    share of the epoch the card was starved by the input pipeline.
+    on the card).  A ``device`` interval inside a ``host`` one (a batch's
+    placement that waits for the card, or whose production overlapped the
+    card's queued work) is the device's alone.
+    ``stall_frac = host / (host + device)`` reads as the share of the epoch
+    the card was starved by the input pipeline.
     """
 
     def __init__(self):
@@ -45,11 +48,11 @@ class StallClock:
 
     @contextmanager
     def host(self) -> Iterator[None]:
-        t0 = time.perf_counter()
+        t0, device0 = time.perf_counter(), self.device_s
         try:
             yield
         finally:
-            self.host_s += time.perf_counter() - t0
+            self.host_s += time.perf_counter() - t0 - (self.device_s - device0)
 
     @contextmanager
     def device(self) -> Iterator[None]:
@@ -61,6 +64,9 @@ class StallClock:
 
     def add_host(self, dt: float) -> None:
         self.host_s += dt
+
+    def add_device(self, dt: float) -> None:
+        self.device_s += dt
 
     def set_prefetch(self, depth: int, occupancy: float) -> None:
         """Record the prefetcher's ring state for this epoch: with

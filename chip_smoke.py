@@ -62,7 +62,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    with ``--aa none`` must make no host sync (``set_sync_debug_mode``) and
    no host copy; its kernels a call (profiler), device ms, host µs and wall
    ms are printed.
-3. The main path: the CLI's trainer on the race recipe at full width
+3. The main path: first JAX's initial networks drawn on the card's host
+   (``utils/jax_random.py``, numpy) against the digests of
+   ``tests/fixtures/jax_init_digests.json`` (resnet32 at width 100 and
+   resnet20mnist, seeds 0 and 5: the initial state, heads 0 and 1), and the
+   main path's own initial network against its seed's; then the CLI's
+   trainer on the race recipe at full width
    (``synthetic_hard128``, resnet32, 100-wide head, batch 128, B50-inc10, 6
    tasks) with the parser's defaults (RandAugment ``rand-m9-mstd0.5-inc1``
    and the fused epoch: the task's dataset on the card, the batches
@@ -166,7 +171,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    each CE kernel one run a step on the card, a memory of paths, 10 task
    records in the CLI's order; per epoch ``host_s`` / ``device_s`` /
    ``stall_frac``, the median step, peak HBM and the phase's wall are
-   printed.
+   printed.  At ``--prefetch_depth 0`` the profiled epoch's ``stall_frac``
+   must be within 0.10 of the card's idle share under the profiler.
 6. Durability: the main path's recipe (``synthetic_hard128``, resnet32,
    100-wide head, batch 128, B50-inc10, 6 tasks, memory 256, RandAugment,
    the CUDA kernels, the fused and graphed epoch) at 2 epochs a task with
@@ -342,6 +348,12 @@ SERVE_CHILD_S = 420        # the reload-and-serve child's time limit
 FLEET_FAULTS = ("replica_die@task0", "swap_ioerror@task1")  # replica i's clause
 FLEET_CLIENTS = 4
 SPAN_COVERAGE = 0.90       # the share of a task span its children must cover
+# The SHA-256 of the initial networks (and heads 0 and 1) that the JAX
+# trainer draws for a few seeds and backbones: the port draws them on the
+# host with numpy (``utils/jax_random.py``), and another host's numpy must
+# draw the same bits.  ``tests/test_torch_jax_random.py`` holds the file to
+# the port's draws, and those to JAX's, on the CPU.
+INIT_DIGESTS = "tests/fixtures/jax_init_digests.json"
 
 
 CARD = ""  # the card's name and power limit (nvidia-smi), printed beside every time
@@ -354,6 +366,49 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def state_digest(tensors) -> str:
+    """SHA-256 over ``(name, tensor)`` pairs: each name, dtype, shape and
+    bytes (CPU, contiguous)."""
+    h = hashlib.sha256()
+    for name, t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update(f"{name}|{t.dtype}|{tuple(t.shape)}|".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def init_digests(backbone: str, width: int, increments, seed: int) -> dict:
+    """The digests of the model ``create_model`` builds for ``--seed seed``
+    (``state``: the backbone, BN and the zero head) and of each head the
+    trainer grows in turn from ``fold_in(grow_key, t)`` (``head{t}``: its
+    weight rows and bias)."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import (
+        create_model, grow, trainer_keys,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
+
+    model = create_model(backbone, width, seed=seed)
+    out = {"state": state_digest(model.state_dict().items())}
+    grow_key, known = trainer_keys(seed)[1], 0
+    for t, n in enumerate(increments):
+        grow(model, jax_random.fold_in(grow_key, t), known, n)
+        out[f"head{t}"] = state_digest([("fc.weight", model.fc.weight[known:known + n]),
+                                        ("fc.bias", model.fc.bias[known:known + n])])
+        known += n
+    return out
+
+
+def check_init_digests() -> list:
+    """Every recipe of ``INIT_DIGESTS`` drawn on this host against the file."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), INIT_DIGESTS)
+    recipes = json.load(open(path))["recipes"]
+    for r in recipes:
+        got = init_digests(r["backbone"], r["width"], r["increments"], r["seed"])
+        check(got == r["digests"], f"the initial draws of {r['backbone']} at seed {r['seed']} "
+              f"differ on this host: {got} against {r['digests']}")
+    return recipes
 
 
 # --------------------------------------------------------------------------- #
@@ -959,10 +1014,23 @@ def phase_main_path(torch):
     with tempfile.TemporaryDirectory() as tmp:
         log = os.path.join(tmp, "smoke.jsonl")
         tel, hb_path = os.path.join(tmp, "tel"), os.path.join(tmp, "hb", "heartbeat.json")
+        # JAX's initial networks, drawn on this host: the fixture's recipes,
+        # and the main path's own (resnet32, 100 wide, --seed 0).
+        t0 = time.perf_counter()
+        recipes = check_init_digests()
+        draw_s = time.perf_counter() - t0
         trainer = build_trainer([
             *RACE_ARGV, "--batch_size", "128", "--num_epochs", str(epochs), "--log_file", log,
             "--telemetry_dir", tel, "--heartbeat_path", hb_path, "--recompile_budget",
         ])
+        main_recipe = next(r for r in recipes if (r["backbone"], r["width"], r["seed"])
+                           == ("resnet32", 100, trainer.config.seed))
+        check(state_digest(trainer.state.model.state_dict().items())
+              == main_recipe["digests"]["state"],
+              "the main path's initial network is not JAX's for its seed")
+        print(f"[main] JAX's initial draws on this host: {len(recipes)} recipes' digests equal "
+              f"{INIT_DIGESTS} ({draw_s:.2f} s), and the main path's initial network "
+              f"(--seed {trainer.config.seed})")
         # Native herding on this host: the library built (or found built)
         # under build/host/ and the memory set to use it.
         lib = native.load_native()
@@ -1259,6 +1327,7 @@ def phase_precision(torch):
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models.resnet import Conv2d
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops.precision import PRESETS
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
 
     (x, y), _ = build_raw_dataset("synthetic_hard128", "", True)
     idx = np.random.RandomState(0).choice(np.flatnonzero(y < 60), (PRECISION_STEPS, 128))
@@ -1266,9 +1335,9 @@ def phase_precision(torch):
     out = {}
     for preset, policy in PRESETS.items():
         model = create_model("resnet32", 100, seed=3, policy=policy).cuda()
-        grow(model, torch.Generator().manual_seed(1), 0, 50)
+        grow(model, jax_random.key(1), 0, 50)
         teacher = tt.Teacher(copy.deepcopy(model).requires_grad_(False), _count(torch, 50))
-        grow(model, torch.Generator().manual_seed(2), 50, 10)
+        grow(model, jax_random.key(2), 50, 10)
         state = tt.TrainState(model, tt.sgd_init(model.parameters()), _count(torch, 60),
                               _count(torch, 50))
         step = tt.make_train_step(AugmentConfig(), policy, 0.0, 2.0, 0.9, 5e-4,
@@ -1556,6 +1625,7 @@ def _job_step(torch, rank, out_dir, argv):
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import grow
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss as fl
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops.precision import PRESETS
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.parallel import (
         broadcast_module, data_axis,
     )
@@ -1583,7 +1653,7 @@ def _job_step(torch, rank, out_dir, argv):
     for i in range(DP_STEPS):
         if i == DP_STEPS // 2:  # task 1: teacher snapshot, head growth, fresh SGD
             teacher = tt.Teacher(copy.deepcopy(model).requires_grad_(False), _count(torch, 50))
-            grow(model, torch.Generator().manual_seed(12), 50, 10)
+            grow(model, jax_random.key(12), 50, 10)
             state.momentum = tt.sgd_init(model.parameters())
             state.num_active, state.known = _count(torch, 60), _count(torch, 50)
         if rank == 0:
@@ -2155,13 +2225,21 @@ def phase_imagenet(torch, depth: int = 0):
     check({"spans.jsonl", "trace.json"} <= set(files), f"imagenet telemetry files {files}")
     step_ms = _step_ms(epochs)
     wall_s = time.perf_counter() - t_phase
+    idle = 1.0 - busy_ms / wall_ms
+    if depth == 0:
+        # The blocking copy's wait for the queued step is the card's: the
+        # profiled epoch's stall_frac reads the card's idle share.
+        stall = epochs[-1]["stall_frac"]
+        check(abs(stall - idle) < 0.10,
+              f"imagenet: task 9's stall_frac {stall} against the card's idle share {idle:.4f}")
     for r in epochs:
         print(f"[imagenet depth {depth}] task {r['task_id']}: {r['steps']} steps, host_s "
               f"{r['host_s']:.4f} "
               f"device_s {r['device_s']:.4f} stall_frac {r['stall_frac']:.4f}, loss "
               f"{r['loss']:.4f}")
     print(f"[imagenet depth {depth}] task 9 under the profiler: the card busy {busy_ms:.3f} ms "
-          f"a step of {wall_ms:.3f} ms wall ({last['steps']} steps) [{CARD}]")
+          f"a step of {wall_ms:.3f} ms wall ({last['steps']} steps), idle share {idle:.4f}, "
+          f"stall_frac {epochs[-1]['stall_frac']:.4f} [{CARD}]")
     print(f"[imagenet depth {depth}] {links} links, {steps} steps, median step {step_ms:.3f} ms at 224 px, "
           f"fit {fit_s:.2f} s, peak HBM {peak} bytes, kernels ran {counts['ran']}, memory "
           f"{len(memory_x)} paths, acc1s {[round(a, 3) for a in result['acc1s']]}, phase "
@@ -2172,7 +2250,7 @@ def phase_imagenet(torch, depth: int = 0):
             "epochs": [{k: r[k] for k in ("task_id", "steps", "host_s", "device_s",
                                           "stall_frac", "epoch_s")} for r in epochs],
             "steps": steps, "step_ms": step_ms, "fit_s": fit_s, "peak_hbm_bytes": peak,
-            "last_task_busy_ms": busy_ms, "last_task_wall_ms": wall_ms,
+            "last_task_busy_ms": busy_ms, "last_task_wall_ms": wall_ms, "last_task_idle": idle,
             "launches": counts["ran"], "memory": len(memory_x), "wall_s": wall_s,
             "acc1s": result["acc1s"]}
 

@@ -3,9 +3,10 @@ their plain versions, the forward's in-kernel batch reduction, a train
 step through the kernels against the same step through the plain loss, the
 augmentation on the card against the same functions on the CPU, one
 step under each precision preset, the graphed fused epoch against eager
-steps, the prefetcher's side stream, and a serving artifact's captured
-graphs (bitwise its eager model; a capture in one thread while another
-replays).  They skip without a card.  This file imports no JAX, so it also runs where
+steps, the prefetcher's side stream, ``stall_frac`` of a per-step epoch
+at ``--prefetch_depth 0`` against the profiler's idle share, and a serving
+artifact's captured graphs (bitwise its eager model; a capture in one
+thread while another replays).  They skip without a card.  This file imports no JAX, so it also runs where
 JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -205,6 +206,7 @@ def test_graphed_epoch_equals_eager_steps_and_counts_launches(cuda):
         create_model,
         grow,
     )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
 
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
@@ -216,7 +218,7 @@ def test_graphed_epoch_equals_eager_steps_and_counts_launches(cuda):
         runs = []
         for graphed in (True, False):
             model = create_model("resnet20", 10, seed=3).to(cuda)
-            grow(model, torch.Generator().manual_seed(1), 0, 6)
+            grow(model, jax_random.key(1), 0, 6)
             state = tt.TrainState(model, tt.sgd_init(model.parameters()),
                                   torch.tensor([6], dtype=torch.int32, device=cuda),
                                   torch.tensor([0], dtype=torch.int32, device=cuda))
@@ -280,18 +282,72 @@ def _serving_artifact(tmp_path, task_id, known, seed):
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving import (
         export_artifact,
     )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
     from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.checkpoint import (
         _model_state,
     )
 
     model = create_model("resnet20", 10, seed=seed)
-    grow(model, torch.Generator().manual_seed(seed), 0, known)
+    grow(model, jax_random.key(seed), 0, known)
     state = _model_state(model)
     return export_artifact(
         str(tmp_path), task_id, AugmentConfig(), state["params"], state["batch_stats"],
         known=known, class_order=list(range(10)), input_size=32, channels=3, buckets=(1, 8),
         device="cuda", model_meta={"backbone": "resnet20", "width": 10, "precision": "f32",
                                    "bn_group_size": 0})
+
+
+@pytest.mark.parametrize("host_ms", [0, 8, 32])
+def test_stall_frac_at_depth_0_is_the_cards_idle_share(cuda, host_ms):
+    """A per-step epoch at ``--prefetch_depth 0`` whose step is long (a chain
+    of 4096² matmuls, ~21 ms) and whose host batches are cheap (16 uint8
+    images) or take ``host_ms`` more to make (a sleep in the decode): the
+    card is busy nearly all the epoch, or (32 ms) idle a third of it.  The
+    step is long against the loop's own ~1.5 ms a step under the profiler.  The
+    blocking copy of each batch waits for the step queued before it, and
+    the production that overlaps that step starves nothing, so
+    ``stall_frac`` must be within 0.10 of the idle share the profiler
+    measures (it read ~0.7 when the wait was charged to the host)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine.train import METRICS
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.telemetry import StallClock
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.profiling import (
+        kernel_table,
+    )
+
+    trainer = build_trainer([
+        "--data_set", "synthetic10", "--num_bases", "0", "--increment", "5",
+        "--backbone", "resnet20", "--batch_size", "16", "--aa", "none", "--color_jitter", "0",
+        "--no_fused_epochs", "--prefetch_depth", "0"])
+    task = next(iter(trainer.scenario_train))
+    a = torch.randn(4096, 4096, device=cuda) / 64
+
+    def long_step(state, teacher, x, y, gen, lr, lam):
+        b = a
+        for _ in range(8):
+            b = a @ b
+        v = b[0, 0] + x.float().mean() + y.float().mean()
+        return {k: v for k in METRICS}
+
+    trainer.train_step = long_step
+    decode = trainer._decode
+    trainer._decode = lambda x, train, seed: (time.sleep(host_ms / 1e3), decode(x, train, seed))[1]
+    long_step(None, None, torch.zeros(1, device=cuda), torch.zeros(1, device=cuda), None, 0, 0)
+    torch.cuda.synchronize()
+    clock = StallClock()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rows = trainer._run_epoch_steps(0, task, 0, None, clock)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = sum(us for _, us in kernel_table(prof).values()) / 1e3
+    idle = 1.0 - busy_ms / wall_ms
+    assert len(rows) == 20 and 0.0 <= idle < 0.6, (len(rows), busy_ms, wall_ms)
+    assert abs(clock.stall_frac - idle) < 0.10, (clock.snapshot(), busy_ms, wall_ms)
 
 
 def test_serving_artifact_replays_its_eager_model_bitwise(cuda, tmp_path):

@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from test_torch_dist import PORT, REPO, spawn_ranks
 
@@ -112,3 +113,12 @@ def test_cli_at_two_ranks_matches_one_process(tmp_path):
         dp, one = res["eval_dp"], res["eval_one"]
         assert dp[1:] == one[1:] and dp[3] == 640  # correct@1, correct@5, count
         assert np.isclose(dp[0], one[0], rtol=1e-5)  # the loss sum, summed in pieces
+
+
+def test_host_devices_names_torchrun():
+    """``--host_devices`` (XLA's host-device emulation) raises, naming what
+    takes its place: torchrun with one process per device."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+
+    with pytest.raises(NotImplementedError, match="torchrun with one process per device"):
+        build_trainer([*CLI_ARGV, "--host_devices", "2"])

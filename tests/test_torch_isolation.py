@@ -136,3 +136,23 @@ def test_image_folder_decodes_without_pil_or_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
+
+
+def test_building_the_model_and_growing_a_head_load_no_jax():
+    """JAX's initial network and a head drawn from JAX's keys
+    (``utils/jax_random.py``) leave JAX, flax and PIL unimported."""
+    code = (
+        "import sys\n"
+        f"from {PORT}.models import create_model, grow, trainer_keys\n"
+        f"from {PORT}.utils import jax_random\n"
+        "model = create_model('resnet20', 10, seed=3)\n"
+        "grow(model, jax_random.fold_in(trainer_keys(3)[1], 0), 0, 5)\n"
+        "assert float(model.fc.weight[:5].abs().sum()) > 0\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")

@@ -32,6 +32,7 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch import models as
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine import train as tt
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.parallel import mesh as tmesh
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.checkpoint import (
     load_task_checkpoint,
 )
@@ -103,7 +104,7 @@ def test_growth_on_a_shard_keeps_the_unsharded_rows():
               for k in range(4)]
     for known, nb_new in ((0, 5), (5, 5)):
         for model in [whole, *shards]:
-            tm.grow(model, torch.Generator().manual_seed(known), known, nb_new)
+            tm.grow(model, jax_random.key(known), known, nb_new)
     torch.testing.assert_close(torch.cat([s.fc.weight for s in shards]), whole.fc.weight,
                                rtol=0, atol=0)
     torch.testing.assert_close(torch.cat([s.fc.bias for s in shards]), whole.fc.bias,
@@ -182,6 +183,7 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops.precision im
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models.classifier import weight_align
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.parallel import gather_full, shard_params
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import checkpoint as ck
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
 
 out_dir = os.getcwd()
 argv = sys.argv[1:] + ["--dist_url", os.environ["DIST_URL"]]
@@ -220,7 +222,7 @@ for s in range(2):
         teacher = tt.Teacher(copy.deepcopy(model).requires_grad_(False), count(5))
         ref_teacher = tt.Teacher(copy.deepcopy(ref).requires_grad_(False), count(5))
         for m, st in ((model, t.state), (ref, ref_state)):
-            grow(m, torch.Generator().manual_seed(9), 5, 5)
+            grow(m, jax_random.key(9), 5, 5)
             st.momentum = tt.sgd_init(m.parameters())
             st.num_active, st.known = count(10), count(5)
     x = torch.from_numpy(data.x[s * 2 * b:(s + 1) * 2 * b])

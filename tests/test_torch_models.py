@@ -16,6 +16,7 @@ from flax.core import unfreeze
 
 from a_pytorch_tutorial_to_class_incremental_learning_tpu import models as jm
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch import models as tm
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.jax_weights import (
     from_jax_variables,
 )
@@ -190,14 +191,13 @@ def test_weight_align_golden_matches_jax():
 
 def test_grow_head_initializes_only_the_new_rows():
     model = tm.CilModel("resnet20", 20)
-    gen = torch.Generator().manual_seed(0)
-    tm.grow_head(model.fc, gen, known=0, nb_new=10)
+    tm.grow_head(model.fc, jax_random.key(0), known=0, nb_new=10)
     w0 = model.fc.weight.detach().clone()
-    tm.grow_head(model.fc, gen, known=10, nb_new=10)
+    tm.grow_head(model.fc, jax_random.key(1), known=10, nb_new=10)
     w1 = model.fc.weight.detach()
     torch.testing.assert_close(w1[:10], w0[:10], rtol=0, atol=0)
     assert w1[10:].abs().max() > 0
     # nn.Linear's default init, as the JAX torch_linear_init: U(+-1/sqrt(64)).
     assert w1.abs().max() <= 1 / 8 + 1e-7 and model.fc.bias.abs().max() <= 1 / 8 + 1e-7
     with pytest.raises(ValueError):
-        tm.grow_head(model.fc, gen, known=15, nb_new=10)
+        tm.grow_head(model.fc, jax_random.key(2), known=15, nb_new=10)

@@ -50,6 +50,7 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.telemetry import
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.checkpoint import (
     _model_state,
 )
+from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.logging import (
     JsonlLogger,
 )
@@ -68,7 +69,7 @@ def _model(known, seed, precision="f32"):
     running statistics that are not the defaults (so a load that dropped
     them would show)."""
     model = create_model("resnet20", NB, seed=seed, policy=get_policy(precision))
-    grow(model, torch.Generator().manual_seed(seed), 0, known)
+    grow(model, jax_random.key(seed), 0, known)
     gen = torch.Generator().manual_seed(seed + 100)
     for name, buf in model.named_buffers():
         if name.endswith("running_mean"):

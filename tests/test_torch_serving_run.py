@@ -109,10 +109,11 @@ def fresh_process(cli_run, tmp_path_factory):
         "torch.set_num_threads(1)\n"
         f"from {PORT}.data.augment import AugmentConfig, eval_preprocess\n"
         f"from {PORT}.models import create_model, grow\n"
+        f"from {PORT}.utils import jax_random\n"
         f"from {PORT}.serving import direct_predict, export_artifact, load_artifact\n"
         f"from {PORT}.utils.checkpoint import _model_state\n"
         "model, cfg = create_model('resnet20', 10, seed=1), AugmentConfig()\n"
-        "grow(model, torch.Generator().manual_seed(1), 0, 5)\n"
+        "grow(model, jax_random.key(1), 0, 5)\n"
         "model.eval()\n"
         "class Eval(torch.nn.Module):\n"
         "    def forward(self, x, na):\n"
