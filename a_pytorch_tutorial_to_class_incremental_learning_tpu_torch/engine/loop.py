@@ -52,8 +52,18 @@ Telemetry (``telemetry/``, JAX ``engine/loop.py:91-186``), at JAX's sites:
 the ``fit`` > ``task`` > {``rehearsal_inject``, ``head_grow``, ``epoch``,
 ``epoch_checkpoint``, ``align``, ``eval_matrix``, ``teacher_snapshot``,
 ``herd``, ``checkpoint``} span tree (``build_scenario`` before it) with
-``--telemetry_dir``; the heartbeat (phases ``train``, ``eval``, ``herd`` and
-each epoch) with ``--heartbeat_path`` or a telemetry dir; the flight
+``--telemetry_dir``.  Five spans of the port's own split the phases whose
+device idle time the benchmark reads: ``epoch_replays`` (the fused epoch's
+dispatch, inside ``epoch``; not its index table or its fetch),
+``capture`` (the task's eager first step and graph capture, inside
+``epoch_replays``; handed to :func:`~.train.make_epoch_fn`), ``evaluate``
+(:meth:`CilTrainer.evaluate`, the in-loop evaluation), and
+``herd_features`` (the feature pass and its fetch) and ``herd_select`` (the
+greedy) inside ``herd``.  Every span, with or without a telemetry dir, also
+annotates an active ``torch.profiler`` trace (``--profile_dir``, a
+benchmark's trace), and with no profiler running costs one flag check
+(``telemetry/spans.py``).  The heartbeat (phases ``train``, ``eval``,
+``herd`` and each epoch) with ``--heartbeat_path`` or a telemetry dir; the flight
 recorder, which the fault injector's ``on_fatal`` and the lockstep
 sentinel dump through; the metrics registry (``steps_total``,
 ``step_latency_ms``, ``epochs_total``, ``stall_frac``, ``recompiles_total``)
@@ -62,9 +72,9 @@ every flag set, a ``compile_event`` at each task's first executed epoch, a
 ``recompile`` record when the train group's captured graphs grow (a
 program is a CUDA graph: ``EpochFn._cache_size``; eager steps hold none),
 and an ``hbm`` record a task on the card.  No telemetry runs between a
-capture's begin and end: spans and ``record_function`` wrap the epoch,
-and the telemetry threads never touch CUDA.  ``step_latency_ms`` is, per
-step, the host's time to dispatch an eager step on the per-step path and,
+capture's begin and end: spans and ``record_function`` wrap the epoch and
+the capture from outside, and the telemetry threads never touch CUDA.
+``step_latency_ms`` is, per step, the host's time to dispatch an eager step on the per-step path and,
 on the fused path, one observation an epoch: the epoch's replays and its
 one fetch over its steps (JAX: its scan's dispatch and fetch).
 ``--profile_dir`` runs each task's first executed epoch, its graph capture
@@ -336,7 +346,8 @@ class CilTrainer:
         )
         self.train_step = make_train_step(self.aug_cfg, self.policy, **step_hp)
         self.epoch_fn = make_epoch_fn(self.aug_cfg, self.policy, device=self.device,
-                                      processes=self.mesh.size, **step_hp)
+                                      processes=self.mesh.size, span=self.telemetry.span,
+                                      **step_hp)
         # lr and λ as 0-d device tensors, as JAX traces them: a captured
         # step reads their values at each replay.
         self._lr = torch.zeros((), device=self.device)
@@ -849,8 +860,9 @@ class CilTrainer:
                 step=self.global_step + 1, task=task_id, epoch=epoch + 1,
             )
         with clock.device():
-            rows = self.epoch_fn(self.state, self.teacher, data_x, data_y, table, gen,
-                                 self._lr, self._lam)
+            with self.telemetry.span("epoch_replays", task=task_id, epoch=epoch + 1):
+                rows = self.epoch_fn(self.state, self.teacher, data_x, data_y, table, gen,
+                                     self._lr, self._lam)
             host = rows.cpu().numpy()  # waits for the epoch's steps
         steps = len(host)
         self.global_step += steps
@@ -970,7 +982,8 @@ class CilTrainer:
         return totals
 
     def evaluate(self, dataset_val) -> float:
-        totals = self._sum_over_ranks(self._eval_totals_device(dataset_val)).cpu().numpy()
+        with self.telemetry.span("evaluate"):
+            totals = self._sum_over_ranks(self._eval_totals_device(dataset_val)).cpu().numpy()
         print(_eval_line(totals))
         return float(100.0 * totals[1] / max(totals[3], 1.0))
 
@@ -983,6 +996,7 @@ class CilTrainer:
         an unshuffled pass, then the herding selection on the host.  The
         pass is unsharded and the same on every rank, so the memories are
         identical without communication."""
+        tel = self.telemetry
         gen = make_generator(self.device, self.config.seed, _HERD_STREAM, task_id)
         feats = []
         source = enumerate(sequential_batches(task_train, self.global_batch_size))
@@ -991,14 +1005,16 @@ class CilTrainer:
             i, (xb, _yb) = item
             return self._to_device(self._decode(xb, train=self.config.herding_augmented, seed=i))
 
-        with self._prefetcher(source, placed, None, "herd", task_id=task_id) as batches:
-            for (x,) in batches:
-                if self.lockstep is not None:
-                    self.lockstep.check("feature_step", program="feature_step", args=(x,),
-                                        task=task_id)
-                feats.append(self.feature_step(self.state.model, x, gen))
-        features = torch.cat(feats).cpu().numpy()[: len(task_train)]
-        self.memory.add(*task_train.get_raw_samples(), features)
+        with tel.span("herd_features", task=task_id):
+            with self._prefetcher(source, placed, None, "herd", task_id=task_id) as batches:
+                for (x,) in batches:
+                    if self.lockstep is not None:
+                        self.lockstep.check("feature_step", program="feature_step", args=(x,),
+                                            task=task_id)
+                    feats.append(self.feature_step(self.state.model, x, gen))
+            features = torch.cat(feats).cpu().numpy()[: len(task_train)]
+        with tel.span("herd_select", task=task_id):
+            self.memory.add(*task_train.get_raw_samples(), features)
 
     # ------------------------------------------------------------------ #
     # The next task's dataset on the warm ring

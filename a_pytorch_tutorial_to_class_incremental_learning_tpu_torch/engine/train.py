@@ -37,10 +37,11 @@ covers the backbone and the head shard alike.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, ContextManager, Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -226,12 +227,17 @@ class EpochFn:
     built by :func:`make_epoch_fn`.  ``captures`` counts the CUDA graphs
     captured so far; :meth:`_cache_size` gives it to the telemetry's
     ``RecompileMonitor`` as JAX's jitted functions give their cache size,
-    and each capture is priced in ``telemetry.compilewatch``."""
+    and each capture is priced in ``telemetry.compilewatch``.  ``span(name)``
+    gives the context manager the capture runs in (the trainer's
+    ``Telemetry.span``): its ``capture`` region opens before the eager first
+    step and closes after the graph's capture block has exited."""
 
-    def __init__(self, step, axis: DataAxis, graphed: bool):
+    def __init__(self, step, axis: DataAxis, graphed: bool,
+                 span: Callable[[str], ContextManager] = contextlib.nullcontext):
         self._step = step
         self._axis = axis
         self.graphed = graphed
+        self._span = span
         self.captures = 0
         self._graph = None
         self._idx = None  # the static index row the captured gather reads
@@ -287,13 +293,15 @@ class EpochFn:
             # Step 0 runs eagerly (a real step, and the capture's warm-up) on
             # the static index row, then the step is captured; the two are
             # the capture's cost (the capture synchronizes on entry).
-            t0 = time.perf_counter()
-            self._idx = torch.empty(b, dtype=torch.int64, device=data_x.device)
-            self._idx.copy_(cols[0])
-            rows[0].copy_(self._run_step(state, teacher, data_x, data_y, self._idx, generator,
-                                         lr, lambda_kd))
-            self._capture(state, teacher, data_x, data_y, generator, lr, lambda_kd)
-            CompileWatch.install().record_capture(time.perf_counter() - t0)
+            with self._span("capture"):
+                t0 = time.perf_counter()
+                self._idx = torch.empty(b, dtype=torch.int64, device=data_x.device)
+                self._idx.copy_(cols[0])
+                rows[0].copy_(self._run_step(state, teacher, data_x, data_y, self._idx,
+                                             generator, lr, lambda_kd))
+                self._capture(state, teacher, data_x, data_y, generator, lr, lambda_kd)
+                capture_s = time.perf_counter() - t0
+            CompileWatch.install().record_capture(capture_s)
             start = 1
         for s in range(start, steps):
             self._idx.copy_(cols[s])
@@ -313,6 +321,7 @@ def make_epoch_fn(
     axis: Optional[DataAxis] = None,
     device: Optional[torch.device] = None,
     processes: int = 1,
+    span: Callable[[str], ContextManager] = contextlib.nullcontext,
 ) -> EpochFn:
     """The fused epoch: counterpart of the JAX package's ``make_epoch_fn``
     (its ``lax.scan`` over the steps of an epoch, one dispatch an epoch).
@@ -336,12 +345,13 @@ def make_epoch_fn(
     On the CPU, and at more than one rank (``processes``: the run's, data
     and model axes together; gloo's collectives cannot be captured), the
     same steps run eagerly.  The choice is made here, from the device and
-    the process count."""
+    the process count.  ``span`` names the capture's region (see
+    :class:`EpochFn`)."""
     axis = axis or DataAxis()
     device = device or torch.device("cpu")
     step = make_train_step(aug_cfg, policy, label_smoothing, kd_temperature, momentum,
                            weight_decay, use_pallas_loss, axis)
-    return EpochFn(step, axis, graphed=device.type == "cuda" and processes == 1)
+    return EpochFn(step, axis, graphed=device.type == "cuda" and processes == 1, span=span)
 
 
 def make_eval_step(aug_cfg: AugmentConfig):

@@ -152,15 +152,16 @@ class Telemetry:
 
     def close(self) -> None:
         """End of run: the pump's last flush, the heartbeat's last beat, the
-        Chrome trace beside the span JSONL, and a last flight dump; then the
-        death-path hooks are undone, so a process that builds many trainers
-        does not stack them."""
+        Chrome trace beside the span JSONL (whose handle closes), and a last
+        flight dump; then the death-path hooks are undone, so a process that
+        builds many trainers does not stack them."""
         if self.pump is not None:
             self.pump.stop()
         self.heartbeat.stop()
         if self.spans.enabled:
             # Process 0 writes trace.json, process i trace_p{i}.json.
             self.spans.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        self.spans.close()
         if self.flight is not None:
             self.flight.dump("close")
             self.flight.uninstall()

@@ -12,17 +12,29 @@ and one JSONL line per region).
 Spans nest: each carries its ``depth`` and ``parent`` id, so a reader can
 reconstruct the tree and compute phase coverage (``scripts/report_run.py``
 checks that depth-1 phases cover ~all of the root span's wall time — any gap
-is un-attributed host time, the kind of silent stall this PR exists to make
-visible).  Each span also enters a ``torch.profiler.record_function`` so
-that when a profiler trace *is* active the host phases appear on its
-timeline.  A span is a host-side region around whole calls; none opens or
+is un-attributed host time, the kind of silent stall the spans exist to make
+visible).  A span is a host-side region around whole calls; none opens or
 closes while a CUDA graph is being captured (the loop's spans wrap the
-epoch, never a step).
+epoch, its replays, the capture from outside, never a step).
 
-Export formats: JSONL (one ``span`` record per line, written on span exit so
-a SIGKILL loses at most the open spans) and Chrome ``chrome://tracing`` /
-Perfetto JSON (``export_chrome_trace``), the zero-dependency way to *see*
-the loop.
+The profiler: a span opened while a ``torch.profiler`` trace is active
+(``torch._C._autograd._profiler_enabled()``) enters a
+``torch.profiler.record_function`` of its name, so the host phases appear on
+the trace's timeline; with no profiler running it makes no such call.  This
+holds for a tracer without a path too (a run without ``--telemetry_dir``):
+it writes nothing and keeps nothing, and is a pure no-op unless a profiler
+is on, when it only annotates.
+
+The clock: a record's ``ts`` is ``time.time_ns()`` read as the span opens,
+the Unix clock the profiler stamps its host events with, so a span and its
+profiler event start together (in seconds, to the microsecond); ``dur_s``
+is measured on ``time.perf_counter``.
+
+Export formats: JSONL (one ``span`` record per line, written and flushed on
+span exit through one line-buffered handle that :meth:`SpanTracer.close`
+closes, so a SIGKILL loses at most the open spans) and Chrome
+``chrome://tracing`` / Perfetto JSON (``export_chrome_trace``), the
+zero-dependency way to *see* the loop.
 """
 
 from __future__ import annotations
@@ -31,19 +43,25 @@ import contextlib
 import json
 import os
 import time
-from typing import Iterator, List, Optional
+from typing import ContextManager, Iterator, List, Optional
+
+from torch._C._autograd import _profiler_enabled
+from torch.profiler import record_function
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class SpanTracer:
     """Context-manager span API writing ``span`` records to a JSONL file.
 
-    Disabled (``path=None``) the tracer is a pure no-op.  Every rank
-    traces: process 0 keeps the legacy ``spans.jsonl`` name, process *i*
-    writes ``spans_p{i}.jsonl`` (``utils.logging.process_suffixed``), and
-    each record carries ``process_index`` so a merged fleet report can tell
-    the streams apart.  When a :class:`~.flight.FlightRecorder` is attached,
-    span opens/closes feed its open-span stack — the "what was the host doing
-    at death" answer a SIGKILL'd process cannot write itself.
+    Without a path (``path=None``) the tracer records nothing: its spans
+    only annotate an active profiler.  Every rank traces: process 0 keeps
+    the legacy ``spans.jsonl`` name, process *i* writes ``spans_p{i}.jsonl``
+    (``utils.logging.process_suffixed``), and each record carries
+    ``process_index`` so a merged fleet report can tell the streams apart.
+    When a :class:`~.flight.FlightRecorder` is attached, span opens/closes
+    feed its open-span stack — the "what was the host doing at death" answer
+    a SIGKILL'd process cannot write itself.
     """
 
     def __init__(
@@ -67,20 +85,20 @@ class SpanTracer:
         self._stack: List[int] = []
         self._next_id = 0
         self.completed: List[dict] = []  # in-memory copy for export/coverage
-        # Monotonic epoch offset: spans are timestamped with the monotonic
-        # clock (immune to NTP steps mid-run) but exported in wall time.
-        self._wall0 = time.time() - time.perf_counter()
+        self._file = None
         if self.path:
             os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
-            open(self.path, "w").close()
+            self._file = open(self.path, "w", buffering=1)
+
+    def span(self, name: str, **attrs) -> ContextManager[None]:
+        """The region ``name``: a ``record_function`` while a profiler is
+        on, and a ``span`` record with a path."""
+        if self.enabled:
+            return self._recorded(name, attrs)
+        return record_function(name) if _profiler_enabled() else _NO_SPAN
 
     @contextlib.contextmanager
-    def span(self, name: str, **attrs) -> Iterator[None]:
-        if not self.enabled:
-            yield
-            return
-        from torch.profiler import record_function
-
+    def _recorded(self, name: str, attrs: dict) -> Iterator[None]:
         span_id = self._next_id
         self._next_id += 1
         parent = self._stack[-1] if self._stack else None
@@ -88,11 +106,10 @@ class SpanTracer:
         self._stack.append(span_id)
         if self.flight is not None:
             self.flight.span_open(name, span_id, depth, **attrs)
+        ts_ns = time.time_ns()
         t0 = time.perf_counter()
         try:
-            # Compose with the profiler: when a torch.profiler trace is
-            # active the host phase shows up on the same timeline.
-            with record_function(name):
+            with record_function(name) if _profiler_enabled() else _NO_SPAN:
                 yield
         finally:
             t1 = time.perf_counter()
@@ -103,17 +120,30 @@ class SpanTracer:
                 "span_id": span_id,
                 "parent": parent,
                 "depth": depth,
-                "ts": round(self._wall0 + t0, 6),
+                "ts": round(ts_ns / 1e9, 6),
                 "dur_s": round(t1 - t0, 6),
                 "process_index": self.process_index,
                 **attrs,
             }
             self.completed.append(rec)
-            with open(self.path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
+            self._write(rec)
             if self.flight is not None:
                 self.flight.span_close(span_id)
                 self.flight.record(rec)
+
+    def _write(self, rec: dict) -> None:
+        """One line through the open handle (line-buffered: each record is
+        flushed as it is written); a span after :meth:`close` appends
+        through a new one."""
+        if self._file is None:
+            self._file = open(self.path, "a", buffering=1)
+        self._file.write(json.dumps(rec) + "\n")
+
+    def close(self) -> None:
+        """Close the JSONL handle (the end of a run)."""
+        if self._file is not None:
+            self._file.close()
+            self._file = None
 
     # ------------------------------------------------------------------ #
     # Analysis / export

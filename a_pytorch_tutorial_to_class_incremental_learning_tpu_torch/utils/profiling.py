@@ -6,8 +6,6 @@ Counterpart of the JAX package's ``utils/profiling.py``:
   on a CUDA machine, CUDA activities) and writes it as a Chrome trace
   (``chrome://tracing``, Perfetto) under ``profile_dir``; a no-op when
   profiling is off;
-* :func:`annotate` is a named region inside a trace
-  (``torch.profiler.record_function``, JAX's ``TraceAnnotation``);
 * :func:`kernel_table` and :func:`device_step_ms` read the card's kernel
   events of a finished profile: the counterpart of
   ``device_step_ms_from_xspaces``, the device-side witness of a step time.
@@ -47,13 +45,6 @@ def task_trace(profile_dir: Optional[str], name: str) -> Iterator[Optional[str]]
     finally:
         prof.stop()
         prof.export_chrome_trace(path)
-
-
-def annotate(name: str):
-    """A named region inside an active trace (decorator or context manager)."""
-    from torch.profiler import record_function
-
-    return record_function(name)
 
 
 def kernel_table(prof) -> Dict[str, List[float]]:

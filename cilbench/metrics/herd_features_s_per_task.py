@@ -1,0 +1,11 @@
+"""``herd_features_s_per_task``: the mean wall seconds of the program's
+``herd_features`` span (the herding feature pass and its fetch) a task,
+over the tasks of the window after its traced part (the trainer's
+``spans.jsonl`` records, with ``--telemetry_dir`` in the traced run)."""
+
+SPAN = "herd_features"
+
+
+def read(r):
+    durs = [s["dur_s"] for s in r.counters.get("spans", []) if s.get("name") == SPAN]
+    return sum(durs) / len(durs) if durs else None

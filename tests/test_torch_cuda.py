@@ -3,7 +3,8 @@ their plain versions, the forward's in-kernel batch reduction, a train
 step through the kernels against the same step through the plain loss, the
 augmentation on the card against the same functions on the CPU, one
 step under each precision preset, the graphed fused epoch against eager
-steps, the prefetcher's side stream, ``stall_frac`` of a per-step epoch
+steps, the trainer's ``capture`` span around each capture, the
+prefetcher's side stream, ``stall_frac`` of a per-step epoch
 at ``--prefetch_depth 0`` against the profiler's idle share, and a serving
 artifact's captured graphs (bitwise its eager model; a capture in one
 thread while another replays).  They skip without a card.  This file imports no JAX, so it also runs where
@@ -11,6 +12,8 @@ JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -245,6 +248,59 @@ def test_graphed_epoch_equals_eager_steps_and_counts_launches(cuda):
         assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+def test_capture_span_wraps_each_capture_from_outside(cuda, tmp_path):
+    """The trainer's ``capture`` span: one a task, inside the first
+    epoch's ``epoch_replays``, never in a replay-only epoch; opened and
+    closed with no capture under way.  An eager epoch function opens none."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.telemetry import load_spans
+
+    trainer = build_trainer([
+        "--data_set", "synthetic10", "--num_bases", "0", "--increment", "5",
+        "--backbone", "resnet20", "--batch_size", "16", "--aa", "none", "--color_jitter", "0",
+        "--num_epochs", "2", "--memory_size", "20", "--telemetry_dir", str(tmp_path)])
+    assert trainer.epoch_fn.graphed
+    seen = []
+    span = trainer.epoch_fn._span
+
+    class Watched:
+        def __init__(self, name):
+            self.name, self.inner = name, span(name)
+
+        def __enter__(self):
+            seen.append((self.name, torch.cuda.is_current_stream_capturing()))
+            return self.inner.__enter__()
+
+        def __exit__(self, *exc):
+            seen.append((self.name, torch.cuda.is_current_stream_capturing()))
+            return self.inner.__exit__(*exc)
+
+    trainer.epoch_fn._span = Watched
+    trainer.fit()
+    assert seen == [("capture", False)] * 4
+    spans = load_spans(str(tmp_path / "spans.jsonl"))
+    by_id = {s["span_id"]: s for s in spans}
+    caps = [s for s in spans if s["name"] == "capture"]
+    outer = [by_id[by_id[c["parent"]]["parent"]] for c in caps]
+    assert [by_id[c["parent"]]["name"] for c in caps] == ["epoch_replays"] * 2
+    assert [(o["name"], o["task"], o["epoch"]) for o in outer] == [("epoch", 0, 1),
+                                                                   ("epoch", 1, 1)]
+    assert trainer.epoch_fn.captures == 2 and all(c["dur_s"] > 0 for c in caps)
+
+    opened = []
+    epoch = tt.make_epoch_fn(taug.AugmentConfig(), PRESETS["f32"], 0.0, 2.0, 0.9, 5e-4,
+                             device=cuda, span=lambda name: opened.append(name) or
+                             contextlib.nullcontext())
+    epoch.graphed = False
+    data_x = torch.randint(0, 256, (32, 32, 32, 3), dtype=torch.uint8, device=cuda)
+    data_y = torch.randint(0, 10, (32,), device=cuda)
+    table = torch.arange(32, device=cuda).view(2, 16)
+    epoch(trainer.state, None, data_x, data_y, table, torch.Generator(device=cuda),
+          torch.tensor(0.1, device=cuda), torch.tensor(0.0, device=cuda))
+    torch.cuda.synchronize()
+    assert opened == [] and epoch.captures == 0
 
 
 def test_prefetcher_copies_on_a_side_stream(cuda):

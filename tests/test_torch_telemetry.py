@@ -96,6 +96,84 @@ def test_disabled_tracer_is_a_no_op(tmp_path):
     assert not tracer.enabled and tracer.completed == [] and tracer.coverage() is None
 
 
+def _profiled(tracer):
+    """``_drive_spans`` under a CPU ``torch.profiler``; its host events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _drive_spans(tracer)
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.name() in ("fit", "task", "epoch", "herd")]
+
+
+@pytest.mark.parametrize("with_path", [False, True])
+def test_spans_annotate_an_active_profiler(tmp_path, with_path):
+    """With or without a JSONL path, each span is one host event of the
+    profiler's, by name (a run without --telemetry_dir, traced)."""
+    tracer = ttel.SpanTracer(str(tmp_path / "spans.jsonl") if with_path else None)
+    events = _profiled(tracer)
+    assert sorted(e.name() for e in events) == sorted(
+        ["fit", "task", "epoch", "herd", "task", "epoch"])
+    assert len(tracer.completed) == (6 if with_path else 0)
+
+
+@pytest.mark.parametrize("with_path", [False, True])
+def test_spans_without_a_profiler_make_no_annotation_or_cuda_call(tmp_path, monkeypatch,
+                                                                   with_path):
+    """With no profiler running a span asks one flag: no record_function,
+    no CUDA call, no synchronization, no event."""
+    import torch
+
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.telemetry import spans
+
+    calls = []
+
+    def counted(name):
+        def call(*a, **k):
+            calls.append(name)
+            raise AssertionError(f"a span called {name}")
+        return call
+
+    tracer = ttel.SpanTracer(str(tmp_path / "spans.jsonl") if with_path else None)
+    monkeypatch.setattr(spans, "record_function", counted("record_function"))
+    for name in ("synchronize", "Event", "current_stream", "is_available", "device_count"):
+        monkeypatch.setattr(torch.cuda, name, counted(f"torch.cuda.{name}"))
+    _drive_spans(tracer)
+    assert calls == []
+    assert len(tracer.completed) == (6 if with_path else 0)
+
+
+def test_span_ts_is_the_profilers_clock(tmp_path):
+    """A span record's ``ts`` and its profiler event's start agree within
+    1 ms: both are the Unix clock."""
+    tracer = ttel.SpanTracer(str(tmp_path / "spans.jsonl"))
+    events = _profiled(tracer)
+    starts = sorted((e.name(), e.start_ns()) for e in events)
+    recs = sorted((r["name"], r["ts"]) for r in tracer.completed)
+    assert [n for n, _ in starts] == [n for n, _ in recs]
+    for (_, ns), (_, ts) in zip(starts, recs):
+        assert abs(ns / 1e9 - ts) < 1e-3, (ns / 1e9, ts)
+
+
+def test_span_jsonl_is_one_handle_flushed_per_record(tmp_path):
+    """Each record is on disk as its span closes; ``close`` closes the
+    handle, and a span after it appends."""
+    path = tmp_path / "spans.jsonl"
+    tracer = ttel.SpanTracer(str(path))
+    with tracer.span("fit"):
+        with tracer.span("task", task=0):
+            pass
+        assert [json.loads(ln)["name"] for ln in open(path)] == ["task"]
+    handle = tracer._file
+    assert [json.loads(ln)["name"] for ln in open(path)] == ["task", "fit"]
+    tracer.close()
+    assert handle.closed and tracer._file is None
+    with tracer.span("late"):
+        pass
+    tracer.close()
+    assert [json.loads(ln)["name"] for ln in open(path)] == ["task", "fit", "late"]
+
+
 @pytest.mark.parametrize("process_index", [0, 1])
 def test_heartbeat_matches_jax(tmp_path, process_index):
     def run(pkg, d):

@@ -193,9 +193,48 @@ def test_span_names_and_record_types_equal_the_jax_run(runs, jax_run):
     port_spans = collections.Counter(
         json.loads(ln)["name"] for ln in open(runs["dir"] / "spans.jsonl"))
     jax_spans = collections.Counter(s["name"] for s in jax_run["spans"])
-    assert port_spans == jax_spans
+    # JAX's names one for one, and the port's own spans of a fused run with
+    # no in-loop evaluation: the epoch's dispatch and herding's two halves.
+    assert {n: port_spans[n] for n in jax_spans} == jax_spans
+    assert port_spans == jax_spans + collections.Counter(
+        {"epoch_replays": 2 * EPOCHS, "herd_features": 2, "herd_select": 2})
     port_types = {r["type"] for r in on["log"]}
     jax_types = {r["type"] for r in jax_run["log"]}
     assert "profile_trace" in port_types and "profile_trace" not in jax_types
     assert "recompile" in jax_types and "recompile" not in port_types
     assert port_types - {"profile_trace"} == jax_types - {"recompile"}
+
+
+@pytest.fixture(scope="module")
+def eval_run(tmp_path_factory):
+    """The 2-task run with telemetry and the loop's evaluation every epoch."""
+    d = tmp_path_factory.mktemp("eval_every_epoch")
+    with deadline(120):
+        CilTrainer(_cfg(telemetry_dir=str(d), num_epochs=2, eval_every_epoch=1),
+                   device="cpu").fit()
+    return [json.loads(ln) for ln in open(d / "spans.jsonl")]
+
+
+def test_the_ports_own_spans_sit_at_their_sites(eval_run):
+    """``epoch_replays`` inside each ``epoch``, ``evaluate`` after each epoch
+    inside its ``task``, and ``herd_features`` then ``herd_select`` inside
+    each ``herd``, covering at least 0.8 of it."""
+    spans = eval_run
+    by_id = {s["span_id"]: s for s in spans}
+
+    def parents(name):
+        return [by_id[s["parent"]]["name"] for s in spans if s["name"] == name]
+
+    assert parents("epoch_replays") == ["epoch"] * 4
+    assert parents("evaluate") == ["task"] * 4
+    assert parents("herd_features") == parents("herd_select") == ["herd"] * 2
+    for herd in (s for s in spans if s["name"] == "herd"):
+        kids = [s for s in spans if s["parent"] == herd["span_id"]]
+        assert [k["name"] for k in kids] == ["herd_features", "herd_select"]
+        assert all(k["task"] == herd["task"] for k in kids)
+        covered = sum(k["dur_s"] for k in kids)
+        assert 0.8 * herd["dur_s"] <= covered <= herd["dur_s"] + 1e-5  # 6-digit rounding
+    for r in (s for s in spans if s["name"] == "epoch_replays"):
+        assert (r["task"], r["epoch"]) == (by_id[r["parent"]]["task"],
+                                           by_id[r["parent"]]["epoch"])
+    assert "capture" not in {s["name"] for s in spans}  # the CPU captures no graph
