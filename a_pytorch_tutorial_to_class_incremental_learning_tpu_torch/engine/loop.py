@@ -66,8 +66,10 @@ benchmark's trace), and with no profiler running costs one flag check
 ``herd`` and each epoch) with ``--heartbeat_path`` or a telemetry dir; the flight
 recorder, which the fault injector's ``on_fatal`` and the lockstep
 sentinel dump through; the metrics registry (``steps_total``,
-``step_latency_ms``, ``epochs_total``, ``stall_frac``, ``recompiles_total``)
-always, its ``metrics_snapshot`` pump when telemetry is on; and, under
+``step_latency_ms``, ``epochs_total``, ``stall_frac``, ``recompiles_total``,
+and the port's ``herd_graph_captures_total`` and ``herd_graph_replays_total``:
+``telemetry/vocabulary.py``) always, its ``metrics_snapshot`` pump when
+telemetry is on; and, under
 every flag set, a ``compile_event`` at each task's first executed epoch, a
 ``recompile`` record when the train group's captured graphs grow (a
 program is a CUDA graph: ``EpochFn._cache_size``; eager steps hold none),
@@ -87,6 +89,17 @@ with ``analysis/lockstep.py`` and compares ranks: once a fused epoch, with
 a digest of the task's host arrays; once a step on the per-step path, with
 a digest of the global batch (made on the producer thread), which every
 rank holds and takes its stripe of.
+
+The herding pass: when the task's pixels are in memory as uint8, it reads
+the resident dataset the task's fused epochs trained on (one copy to the
+device otherwise, as after a restore) and, on CUDA at one process, replays
+one CUDA graph a batch (the augmentation on static draws and the eval-mode
+backbone; ``train.FeatureStep``), captured once a trainer; elsewhere the
+same pass runs eagerly.  The draws stay eager, one ``draw_params`` call a
+batch on the task's herding generator, as on the host-batched pass that a
+path dataset takes, so the features are the same.  The capture is not the
+``train`` group's: no ``compile_event``, ``recompile`` or ``capture`` span
+counts it.
 
 Native herding (``utils/native.py``): the C++ greedy of
 ``csrc/cil_host.cpp``, built at startup, used only when every rank has it
@@ -174,6 +187,7 @@ from ..telemetry import (
     Telemetry,
     average_incremental_accuracy,
 )
+from ..telemetry.vocabulary import extend_contracts
 from ..utils import jax_random
 from ..utils.logging import JsonlLogger, MetricLogger
 from ..utils.profiling import task_trace
@@ -231,6 +245,8 @@ class CilTrainer:
         if config.check_contracts:
             from analysis import contractcheck as contracts
         self.contractcheck = contracts.install() if contracts is not None else None
+        if self.contractcheck is not None:
+            extend_contracts(self.contractcheck)
         log_path = config.log_file
         if log_path is None and config.telemetry_dir:
             log_path = os.path.join(config.telemetry_dir, "run.jsonl")
@@ -266,6 +282,8 @@ class CilTrainer:
         self._m_epochs = reg.counter("epochs_total")
         self._m_stall = reg.gauge("stall_frac")
         self._m_recompiles = reg.gauge("recompiles_total")
+        self._m_herd_captures = reg.counter("herd_graph_captures_total")
+        self._m_herd_replays = reg.counter("herd_graph_replays_total")
         self.lockstep = self._lockstep_sentinel()
         self.faults = self._fault_injector()
         with self.telemetry.span("build_scenario"):
@@ -355,6 +373,9 @@ class CilTrainer:
         # The next task's dataset, armed by the herding phase on the warm
         # ring (--prefetch_depth > 0 on the fused path); see _warm_next_task.
         self._task_warm = None
+        # The resident dataset of the task _fit_task trained over, for its
+        # herding pass: (task_train, (data_x, data_y)), or None.
+        self._herd_resident = None
         self.eval_step = make_eval_step(self.aug_cfg)
         self.feature_step = make_feature_step(
             self.aug_cfg, augmented=config.herding_augmented
@@ -740,6 +761,7 @@ class CilTrainer:
         # The fused epoch needs the pixels in memory as uint8.
         fused = cfg.fused_epochs and task_train.x.dtype == np.uint8
         task_digest = None
+        self._herd_resident = None
         if fused:
             # The last task's captured step read tensors that this task
             # rebinds: the grown head and fresh momentum, the teacher, and
@@ -750,6 +772,8 @@ class CilTrainer:
             resident = self._consume_task_warm(task_id, task_train)
             if resident is None:
                 resident = to_device(self.device, task_train.x, task_train.y)
+            # Herding reads it again after the task's evaluation.
+            self._herd_resident = (task_train, resident)
             # One digest a task, of the host arrays the resident copy came
             # from: the finest grain the host sees on this path.
             if self.lockstep is not None:
@@ -995,9 +1019,26 @@ class CilTrainer:
         """Features of every sample of the task (plus injected exemplars) in
         an unshuffled pass, then the herding selection on the host.  The
         pass is unsharded and the same on every rank, so the memories are
-        identical without communication."""
+        identical without communication.  When the pixels are in memory as
+        uint8, the pass runs over the task's dataset on the device
+        (:meth:`_resident_features`); a path dataset takes the host-batched
+        pass (:meth:`_batched_features`)."""
         tel = self.telemetry
         gen = make_generator(self.device, self.config.seed, _HERD_STREAM, task_id)
+        held, self._herd_resident = self._herd_resident, None
+        with tel.span("herd_features", task=task_id):
+            if task_train.x.dtype == np.uint8:
+                features = self._resident_features(task_id, task_train, held, gen)
+            else:
+                features = self._batched_features(task_id, task_train, gen)
+            features = features.cpu().numpy()
+        with tel.span("herd_select", task=task_id):
+            self.memory.add(*task_train.get_raw_samples(), features)
+
+    def _batched_features(self, task_id: int, task_train, gen) -> torch.Tensor:
+        """The pass of a path dataset, one host batch at a time: gathered
+        and decoded on the host, copied to the device, then the eager
+        feature step."""
         feats = []
         source = enumerate(sequential_batches(task_train, self.global_batch_size))
 
@@ -1005,16 +1046,38 @@ class CilTrainer:
             i, (xb, _yb) = item
             return self._to_device(self._decode(xb, train=self.config.herding_augmented, seed=i))
 
-        with tel.span("herd_features", task=task_id):
-            with self._prefetcher(source, placed, None, "herd", task_id=task_id) as batches:
-                for (x,) in batches:
-                    if self.lockstep is not None:
-                        self.lockstep.check("feature_step", program="feature_step", args=(x,),
-                                            task=task_id)
-                    feats.append(self.feature_step(self.state.model, x, gen))
-            features = torch.cat(feats).cpu().numpy()[: len(task_train)]
-        with tel.span("herd_select", task=task_id):
-            self.memory.add(*task_train.get_raw_samples(), features)
+        with self._prefetcher(source, placed, None, "herd", task_id=task_id) as batches:
+            for (x,) in batches:
+                self._check_feature_step(task_id, x)
+                feats.append(self.feature_step(self.state.model, x, gen))
+        return torch.cat(feats)[: len(task_train)]
+
+    def _resident_features(self, task_id: int, task_train, held, gen) -> torch.Tensor:
+        """The pass over the task's dataset on the device: the resident copy
+        ``_fit_task`` trained on when ``held`` is this task's, else one copy
+        of ``task_train.x``.  On CUDA at one process it replays the feature
+        step's CUDA graph once a batch (:meth:`FeatureStep.resident_pass`);
+        elsewhere the same pass runs eagerly, as the fused epoch does."""
+        if held is not None and held[0] is task_train:
+            data_x = held[1][0]
+        else:
+            data_x = to_device(self.device, task_train.x)[0]
+        step = self.feature_step
+        # The fused epoch's rule: a graph on CUDA at one process.
+        graphed = self.device.type == "cuda" and self.mesh.size == 1
+        captures, replays = step.captures, step.replays
+        features = step.resident_pass(
+            self.state.model, data_x, len(task_train), self.global_batch_size, gen, graphed,
+            each_batch=lambda x: self._check_feature_step(task_id, x))
+        self._m_herd_captures.inc(step.captures - captures)
+        self._m_herd_replays.inc(step.replays - replays)
+        return features
+
+    def _check_feature_step(self, task_id: int, x: torch.Tensor) -> None:
+        """The lockstep fingerprint of a herding batch: shapes only."""
+        if self.lockstep is not None:
+            self.lockstep.check("feature_step", program="feature_step", args=(x,),
+                                task=task_id)
 
     # ------------------------------------------------------------------ #
     # The next task's dataset on the warm ring

@@ -7,7 +7,8 @@ teacher forward (eval mode, no grad) + λ·KD -> backward -> SGD.  Step
 metrics stay on the device; the loop fetches them once per epoch.
 ``make_epoch_fn`` runs an epoch of these steps on a dataset held on the
 device (JAX ``make_epoch_fn``), replaying one captured CUDA graph a step
-on CUDA at one rank.
+on CUDA at one rank; :class:`FeatureStep` runs herding's feature pass over
+such a dataset, replaying one captured graph a batch.
 
 Precision: the model carries its policy (``ops/precision.py``) and casts at
 the JAX package's cast points; the logits, the losses, the parameters, the
@@ -40,13 +41,15 @@ from __future__ import annotations
 import contextlib
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Callable, ContextManager, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..data import augment
 from ..data.augment import AugmentConfig, eval_preprocess, train_augment
 from ..models import CilModel
 from ..ops import fused_masked_cross_entropy, sharded_fused_masked_cross_entropy
@@ -374,16 +377,122 @@ def make_eval_step(aug_cfg: AugmentConfig):
     return step
 
 
-def make_feature_step(aug_cfg: AugmentConfig, augmented: bool):
-    """Herding features ``[B, 64]`` in eval mode, from augmented images by
-    default (the reference's herding loader wraps the train transform)."""
+class FeatureStep:
+    """Herding features ``[B, 64]`` in eval mode, from augmented images
+    when ``augmented`` (the reference's herding loader wraps the train
+    transform); built by :func:`make_feature_step`.
+
+    Called on one uint8 batch it runs eagerly: the host-batched pass of a
+    path dataset.  :meth:`resident_pass` runs the whole
+    unshuffled herding pass over a dataset held on the device.  Each batch
+    gathers its rows into a static batch on the device and draws its
+    augmentation eagerly, one ``augment.draw_params`` call a batch on the
+    caller's generator, into fresh tensors.  With ``graphed`` they are
+    copied into static ones and the augmentation and the backbone replay
+    one CUDA graph; else both run eagerly on the drawn tensors.  A graph is
+    captured at the first graphed pass and again only when a pass's batch
+    shape, mode or backbone tensors (their storage) differ from the
+    capture's; ``captures`` and ``replays`` count them.  The gather stays
+    outside the graph: each task's resident dataset is a new tensor, which
+    a graph would have to be captured anew to read."""
+
+    def __init__(self, aug_cfg: AugmentConfig, augmented: bool):
+        self.aug_cfg = aug_cfg
+        self.augmented = augmented
+        self.captures = 0
+        self.replays = 0
+        self._graph = None
+        self._key = None  # what the graph binds: batch shape, mode, backbone storage
+        self._x = None  # the static uint8 batch
+        self._draws = None  # the static draws the graph reads
+        self._out = None  # the graph's features
 
     @torch.no_grad()
-    def step(model, x_u8, generator):
-        if augmented:
-            x = train_augment(x_u8, aug_cfg, generator)
+    def __call__(self, model: CilModel, x_u8: torch.Tensor,
+                 generator: torch.Generator) -> torch.Tensor:
+        if self.augmented:
+            x = train_augment(x_u8, self.aug_cfg, generator)
         else:
-            x = eval_preprocess(x_u8, aug_cfg)
+            x = eval_preprocess(x_u8, self.aug_cfg)
         return model.extract_vector(x, train=False)
 
-    return step
+    def _features(self, model: CilModel, draws: Optional[augment.Draws]) -> torch.Tensor:
+        """The graph's region: the static batch to its features."""
+        if self.augmented:
+            x = augment.augment(self._x, draws, self.aug_cfg)
+        else:
+            x = eval_preprocess(self._x, self.aug_cfg)
+        return model.extract_vector(x, train=False)
+
+    def _stage(self, draws: augment.Draws) -> None:
+        """A batch's draws into the static ones the graph reads; the drawn
+        tensors stay as they were drawn."""
+        if self._draws is None:
+            self._draws = augment.Draws(**{f.name: t.clone() for f in fields(draws)
+                                           if (t := getattr(draws, f.name)) is not None})
+            return
+        for f in fields(draws):
+            if (t := getattr(draws, f.name)) is not None:
+                getattr(self._draws, f.name).copy_(t)
+
+    def _capture(self, model: CilModel) -> None:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._out = self._features(model, self._draws)
+        self._graph = graph
+        self.captures += 1
+
+    @torch.no_grad()
+    def resident_pass(self, model: CilModel, data_x: torch.Tensor, n: int, batch_size: int,
+                      generator: torch.Generator, graphed: bool,
+                      each_batch: Optional[Callable[[torch.Tensor], None]] = None,
+                      ) -> torch.Tensor:
+        """The features ``[n, D]`` on the device of the first ``n`` rows of
+        ``data_x`` (uint8 ``[N, H, W, C]`` on the device), in the batches of
+        ``data/loader.py`` ``sequential_batches``: ``ceil(n / batch_size)``
+        of them, the last wrap-padded.  ``each_batch`` sees every batch
+        before its features are computed."""
+        dev = data_x.device
+        nb = -(-n // batch_size)
+        table = torch.from_numpy(np.resize(np.arange(n), (nb, batch_size))).to(dev)
+        shape = (batch_size, *data_x.shape[1:])
+        if self._x is None or tuple(self._x.shape) != shape or self._x.device != dev:
+            self._x = torch.empty(shape, dtype=torch.uint8, device=dev)
+            self._key = None  # a graph reads the static batch it was captured on
+        if graphed:
+            backbone = [*model.backbone.parameters(), *model.backbone.buffers()]
+            key = (shape, self.augmented, tuple(t.data_ptr() for t in backbone))
+            if key != self._key:
+                self._graph = self._out = self._draws = None
+                self._key = key
+        out = None
+        for b in range(nb):
+            torch.index_select(data_x, 0, table[b], out=self._x)
+            if each_batch is not None:
+                each_batch(self._x)
+            draws = None
+            if self.augmented:
+                draws = augment.draw_params(batch_size, self.aug_cfg, generator, shape[1:])
+            if not graphed:
+                f = self._features(model, draws)
+            else:
+                if draws is not None:
+                    self._stage(draws)
+                if self._graph is None:
+                    # The batch runs eagerly (the capture's warm-up), then
+                    # the region is captured; the later batches replay it.
+                    f = self._features(model, self._draws)
+                    self._capture(model)
+                else:
+                    self._graph.replay()
+                    self.replays += 1
+                    f = self._out
+            if out is None:
+                out = f.new_empty((nb, *f.shape))
+            out[b].copy_(f)
+        return out.view(nb * batch_size, -1)[:n]
+
+
+def make_feature_step(aug_cfg: AugmentConfig, augmented: bool) -> FeatureStep:
+    """The herding feature step (see :class:`FeatureStep`)."""
+    return FeatureStep(aug_cfg, augmented)

@@ -3,7 +3,8 @@ their plain versions, the forward's in-kernel batch reduction, a train
 step through the kernels against the same step through the plain loss, the
 augmentation on the card against the same functions on the CPU, one
 step under each precision preset, the graphed fused epoch against eager
-steps, the trainer's ``capture`` span around each capture, the
+steps, the graphed herding pass against the eager ones, the trainer's
+``capture`` span around each capture, the
 prefetcher's side stream, ``stall_frac`` of a per-step epoch
 at ``--prefetch_depth 0`` against the profiler's idle share, and a serving
 artifact's captured graphs (bitwise its eager model; a capture in one
@@ -246,6 +247,50 @@ def test_graphed_epoch_equals_eager_steps_and_counts_launches(cuda):
                          [t.detach().cpu() for t in [*model.parameters(), *model.buffers()]]))
         assert torch.equal(runs[0][0], runs[1][0])
         assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_graphed_herding_pass_equals_the_eager_passes(cuda):
+    """The herding feature pass on the card: the resident pass replaying one
+    captured graph a batch, against the same pass run eagerly and against
+    the host-batched eager pass (a host batch copied at a time), bitwise
+    under deterministic cuDNN, on a task with a wrap-padded tail, augmented
+    (crop, flip, RandAugment, erasing) and not.  A second pass replays
+    every batch."""
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import (
+        sequential_batches,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.scenario import TaskSet
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import (
+        create_model,
+        grow,
+    )
+    from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import jax_random
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        n, b, cfg = 300, 128, taug.AugmentConfig(reprob=0.25)
+        model = create_model("resnet32", 10, seed=3).to(cuda)
+        grow(model, jax_random.key(1), 0, 6)
+        x = np.random.RandomState(0).randint(0, 256, (n, 32, 32, 3)).astype(np.uint8)
+        task = TaskSet(x, np.zeros(n, np.int64), np.zeros(n, np.int64))
+        data_x = torch.from_numpy(x).to(cuda)
+        for augmented in (True, False):
+            eager = tt.make_feature_step(cfg, augmented)
+            gen = torch.Generator(device=cuda).manual_seed(5)
+            host = torch.cat([eager(model, torch.from_numpy(xb).to(cuda), gen)
+                              for xb, _ in sequential_batches(task, b)])[:n]
+            runs = [eager.resident_pass(model, data_x, n, b,
+                                        torch.Generator(device=cuda).manual_seed(5), False)]
+            step = tt.make_feature_step(cfg, augmented)
+            for _ in range(2):
+                runs.append(step.resident_pass(model, data_x, n, b,
+                                               torch.Generator(device=cuda).manual_seed(5), True))
+            torch.cuda.synchronize()
+            assert (step.captures, step.replays) == (1, 5)
+            for got in runs:
+                assert got.shape == (n, 64) and torch.equal(got, host), augmented
     finally:
         torch.backends.cudnn.deterministic = False
 

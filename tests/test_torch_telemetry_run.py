@@ -11,6 +11,7 @@ epoch checkpoints), as the JAX package's own fault tests use it:
 * its JSONL, spans and flight dump pass ``scripts/check_telemetry_schema.py``
   as it stands, it logs no contract or thread violation, and its files are
   where JAX's are;
+* the port's herding counters read no CUDA graph on the CPU;
 * its multiset of span names equals that of the JAX trainer's run of the
   same config, and its set of record types equals JAX's but for two:
   ``profile_trace`` (the JAX run is not profiled: its profiler costs ~20 s
@@ -186,6 +187,18 @@ def test_files_and_records_of_the_telemetry(runs):
     for t in tasks:
         kids = sum(s["dur_s"] for s in spans if s["parent"] == t["span_id"])
         assert kids <= t["dur_s"] and kids >= 0.8 * t["dur_s"]
+
+
+def test_herding_counters_read_no_graph_on_the_cpu(runs):
+    """The port's herding counters are in every snapshot, under the
+    contract sentinel's extended vocabulary, and read no CUDA graph on the
+    CPU: both tasks' feature passes ran eagerly on the resident dataset."""
+    on = runs["on"]
+    for snap in _of(on, "metrics_snapshot"):
+        assert snap["counters"]["herd_graph_captures_total"] == 0
+        assert snap["counters"]["herd_graph_replays_total"] == 0
+    step = on["trainer"].feature_step
+    assert (step.captures, step.replays) == (0, 0) and step._x is not None
 
 
 def test_span_names_and_record_types_equal_the_jax_run(runs, jax_run):
