@@ -37,6 +37,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.config import Ci
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine import CilTrainer
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils import checkpoint as tck
 from faults import FaultInjected, injector_from
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 SPEC = "raise@task1.epoch1"
 TEST_LIMIT_S = 120  # per test; the module's training runs once, in fixtures

@@ -180,9 +180,10 @@ def test_build_directory_is_ignored_by_git(tmp_path):
     rel = os.path.relpath(cuda_build.library_path("fused_ce"), REPO)
     assert not rel.startswith("..")
     shutil.copy(os.path.join(REPO, ".gitignore"), tmp_path / ".gitignore")
-    subprocess.run(["git", "init", "-q", str(tmp_path)], check=True)
+    subprocess.run(["git", "init", "-q", str(tmp_path)], check=True, timeout=60)
     for path in (rel, os.path.relpath(cuda_build.report_path("fused_ce"), REPO)):
-        proc = subprocess.run(["git", "-C", str(tmp_path), "check-ignore", "-q", path])
+        proc = subprocess.run(["git", "-C", str(tmp_path), "check-ignore", "-q", path],
+                              timeout=60)
         assert proc.returncode == 0, f"{path} is not ignored"
 
 

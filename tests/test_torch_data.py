@@ -14,6 +14,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu.data import augment as
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch import config as tcfg
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch import data as tdata
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import augment as taug
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 RECIPES = [
     dict(data_set="synthetic10", num_bases=0, increment=5),

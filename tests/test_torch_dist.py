@@ -77,11 +77,18 @@ def spawn_ranks(tmp_path, script, nprocs=2, timeout=120.0, argv=()):
         for p in procs:
             p.kill()
         for p in procs:
-            p.communicate()
+            p.communicate(timeout=60)
         pytest.fail(f"rank processes did not finish within {timeout} s")
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} failed:\n{out[-4000:]}"
     return outs
+
+
+def _intra_op_threads(n):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -90,10 +97,17 @@ def one_intra_op_thread():
     pytest.mark.usefixtures("one_intra_op_thread")`` in a file that imports
     it): beside the other test workers, torch's default pool of one thread
     a core oversubscribes the cores and its parallel regions stall."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    yield from _intra_op_threads(1)
+
+
+@pytest.fixture(scope="module")
+def two_intra_op_threads():
+    """torch on two intra-op threads for a whole file, its module fixtures
+    included (``pytestmark = pytest.mark.usefixtures("two_intra_op_threads")``
+    in a file that imports it), for the same reason as
+    ``one_intra_op_thread``.  Two and not one: on one thread a bf16 step's
+    reductions round past ``test_torch_precision``'s tolerance."""
+    yield from _intra_op_threads(2)
 
 
 @pytest.fixture

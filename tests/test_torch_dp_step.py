@@ -33,10 +33,12 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch import models as
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.jax_weights import (
     from_jax_variables,
 )
-from test_torch_dist import spawn_ranks
+from test_torch_dist import spawn_ranks, two_intra_op_threads  # noqa: F401
 import torch
 
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data import augment as taug
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 HP = dict(lr=0.05, momentum=0.9, weight_decay=5e-4, lam=0.5, temperature=2.0, smooth=0.1)
 # (use_pallas_loss, bn_group_size, RandAugment in the step)
@@ -199,7 +201,8 @@ def runs(tmp_path_factory, setups):
     try:
         reference = _jax_reference(setups)
     finally:
-        worker.join()
+        worker.join(timeout=300)
+    assert not worker.is_alive(), "the rank processes outlived their deadline"
     if "error" in ranks:
         raise ranks["error"]
     return ranks["out"], reference

@@ -42,6 +42,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.serving.replica 
     decode_logits,
     encode_image,
 )
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -116,7 +119,8 @@ class StubReplica:
 
     def stop(self):
         self._httpd.shutdown()
-        self._thread.join()
+        self._thread.join(timeout=10)
+        assert not self._thread.is_alive()
         self._httpd.server_close()
 
 
@@ -167,7 +171,8 @@ def test_shed_low_first_high_unharmed(fleet2):
         for t in threads:
             t.start()
         for t in threads:
-            t.join()
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
         # Low takes the sheds; high takes none and never fails.
         assert outcomes["high"] == [200, 200, 200, 200]
         assert 503 in outcomes["low"]

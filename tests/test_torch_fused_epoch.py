@@ -47,6 +47,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.jax_weight
 from faults import FaultInjected
 from test_torch_checkpoint import _cfg, _records, deadline
 from test_torch_train_step import HP, _as_param_list, _count, _setup
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 TEST_LIMIT_S = 120
 N, GB = 20, 8  # dataset rows and global batch of the JAX comparison: 3 steps

@@ -24,6 +24,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import (
     fused_masked_cross_entropy,
 )
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import fused_loss
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 GRID = [(32, 100, 60), (64, 128, 128), (16, 7, 5)]
 

@@ -20,6 +20,9 @@ import torch
 
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.main import build_trainer
 from test_torch_checkpoint import _records, deadline
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 TEST_LIMIT_S = 120
 CLI = ["--platform", "cpu", "--data_set", "synthetic10", "--num_bases", "4", "--increment",

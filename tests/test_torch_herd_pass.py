@@ -35,6 +35,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.platform i
     make_generator,
 )
 from test_torch_checkpoint import _cfg, deadline
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 N, B = 20, 8  # three batches, the last wrap-padded to 24 rows
 CPU = torch.device("cpu")

@@ -38,6 +38,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.jax_weight
     from_jax_variables,
 )
 from test_torch_race_init import jax_initial_state, port_initial_state  # noqa: E402
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 SEEDS = (0, 3, 5, 2**31 - 1)
 SHAPES = ((1,), (7,), (3, 5), (3, 3, 3, 16), (64, 50))

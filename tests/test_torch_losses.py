@@ -11,6 +11,9 @@ import torch
 from a_pytorch_tutorial_to_class_incremental_learning_tpu.engine import losses as jl
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine import losses as tl
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import NEG_INF
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 
 def _logits(b, width, active, seed):

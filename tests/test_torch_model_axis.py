@@ -39,7 +39,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.checkpoint
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.jax_weights import (
     from_jax_variables,
 )
-from test_torch_dist import no_dist_env, spawn_ranks  # noqa: F401
+from test_torch_dist import no_dist_env, spawn_ranks, two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 
 class _Group:

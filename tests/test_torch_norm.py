@@ -24,7 +24,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu.models.norm import (
     GroupedBatchNorm as JaxGroupedBatchNorm,
 )
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.models import GroupedBatchNorm
-from test_torch_dist import spawn_ranks
+from test_torch_dist import spawn_ranks, two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 B, C, H, W = 16, 8, 6, 6
 FWD = dict(rtol=2e-4, atol=2e-5)

@@ -42,6 +42,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.ops import preci
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.utils.jax_weights import (
     from_jax_variables,
 )
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "a_pytorch_tutorial_to_class_incremental_learning_tpu_torch"

@@ -17,6 +17,9 @@ from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.data.prefetch im
     to_device,
 )
 from test_torch_checkpoint import deadline
+from test_torch_dist import two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 TEST_LIMIT_S = 120
 CPU = torch.device("cpu")

@@ -33,7 +33,9 @@ import torch
 
 from a_pytorch_tutorial_to_class_incremental_learning_tpu_torch.engine import CilTrainer
 from test_torch_checkpoint import _cfg, _records, deadline
-from test_torch_dist import REPO
+from test_torch_dist import REPO, two_intra_op_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_intra_op_threads")
 
 EPOCHS = 1
 
